@@ -1,0 +1,99 @@
+"""Control network: (f0, loudness) features -> synthesis controls.
+
+Counterpart of ``ddsp_tpu/models/controller.py`` (reference
+model/autoencoder/decoder.py:41-147): two input MLPs -> GRU -> MLP -> three
+dense heads through ``modified_sigmoid``.  The streaming path returns the
+advanced GRU state (the reference returns the stale one).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ddsp_tpu_torch.config import Config
+from ddsp_tpu_torch.models.nn import GRU, MLP
+from ddsp_tpu_torch.models.synths import Reverb
+
+
+def modified_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """2 * sigmoid(x)^2.3026 + 1e-7: the reference's literal exponent
+    (decoder.py:110-116), not log(10)."""
+    return 2.0 * torch.sigmoid(x) ** 2.3026 + 1e-7
+
+
+class Controller(nn.Module):
+    def __init__(self, conf: Config):
+        super().__init__()
+        units, layers = conf.decoder_mlp_units, conf.decoder_mlp_layers
+        gru_units = conf.decoder_gru_units
+        self.mlp_f0 = MLP(1, units, layers)
+        self.mlp_loudness = MLP(1, units, layers)
+        self.gru = GRU(2 * units, gru_units, conf.decoder_gru_layers)
+        self.mlp_gru = MLP(gru_units + 2 * units, units, layers)
+        self.dense_harmonic = nn.Linear(units, conf.n_harmonics)
+        self.dense_loudness = nn.Linear(units, 1)
+        self.dense_filter = nn.Linear(units, conf.n_noise_filters)
+
+    def forward(
+        self,
+        batch: Dict[str, torch.Tensor],
+        hidden: Optional[torch.Tensor] = None,
+    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        latent_f0 = self.mlp_f0(batch["normalized_cents"])
+        latent_loud = self.mlp_loudness(batch["loudness"])
+        latent, new_hidden = self.gru(
+            torch.cat([latent_f0, latent_loud], dim=-1), hidden
+        )
+        latent = self.mlp_gru(torch.cat([latent, latent_f0, latent_loud], -1))
+        controls = {
+            "f0": batch["f0"],
+            "c": modified_sigmoid(self.dense_harmonic(latent)),
+            "a": modified_sigmoid(self.dense_loudness(latent)),
+            "H": modified_sigmoid(self.dense_filter(latent)),
+        }
+        return controls, new_hidden
+
+
+class Decoder(nn.Module):
+    """Controller plus reverb parameters; ``state_dict`` keys are the
+    learned keys of the reference Decoder (``controller.*``,
+    ``reverb.{noise,decay,wet}``)."""
+
+    def __init__(self, conf: Config):
+        super().__init__()
+        self.controller = Controller(conf)
+        self.reverb = Reverb(conf)
+
+
+def controller_init(conf: Config, seed: int = 0) -> Controller:
+    """A :class:`Controller` with torch's default init drawn from ``seed``."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return Controller(conf)
+
+
+def decoder_init(conf: Config, seed: int = 0) -> Decoder:
+    """A :class:`Decoder` with random weights drawn from ``seed``."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return Decoder(conf)
+
+
+def controller_apply(
+    controller: Controller,
+    batch: Dict[str, torch.Tensor],
+    hidden: Optional[torch.Tensor] = None,
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Map features to synthesis controls.
+
+    Args:
+      batch: {'normalized_cents', 'loudness', 'f0'}, each (B, T, 1).
+      hidden: optional (layers, B, H) GRU state.
+
+    Returns:
+      (controls {f0, c, a, H}, advanced hidden state).
+    """
+    return controller(batch, hidden)

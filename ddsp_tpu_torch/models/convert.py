@@ -1,0 +1,109 @@
+"""Weight carry-over into the port's modules.
+
+* ``decoder_from_jax`` / ``crepe_from_jax`` take the JAX package's
+  parameter trees as numpy arrays (``jax.tree.map(np.asarray, params)``,
+  done by the caller so this package never imports jax);
+* ``decoder_from_state_dict`` / ``load_lightning_decoder`` read the
+  reference Decoder layout, which ``ddsp_tpu/models/torch_export.py``
+  writes and the reference's Lightning checkpoints hold.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from ddsp_tpu_torch.config import Config
+from ddsp_tpu_torch.models.controller import Decoder
+from ddsp_tpu_torch.models.crepe import CAPACITIES, Crepe
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def decoder_from_state_dict(sd: Mapping[str, torch.Tensor], conf: Config) -> Decoder:
+    """Reference Decoder state dict -> :class:`Decoder`.
+
+    Keys the Decoder does not learn (``harmonics.*``, ``reverb.t``,
+    ``reverb.buffer``) are ignored; a missing learned key raises."""
+    model = Decoder(conf)
+    own = model.state_dict()
+    missing = sorted(set(own) - set(sd))
+    if missing:
+        raise KeyError(f"decoder state dict lacks {missing}")
+    model.load_state_dict(
+        {k: torch.as_tensor(sd[k], dtype=torch.float32) for k in own}
+    )
+    return model.eval()
+
+
+def load_lightning_decoder(path: str, conf: Config) -> Decoder:
+    """A Lightning ``.ckpt`` (keys under ``state_dict`` with a ``model.``
+    prefix) or a bare Decoder state dict file -> :class:`Decoder`."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    sd = blob.get("state_dict", blob)
+    return decoder_from_state_dict(
+        {k[6:] if k.startswith("model.") else k: v for k, v in sd.items()},
+        conf,
+    )
+
+
+def decoder_from_jax(np_tree: Dict, conf: Config) -> Decoder:
+    """ddsp_tpu decoder tree ``{'controller': ..., 'reverb': ...}`` with
+    numpy leaves -> :class:`Decoder`."""
+    ctrl = np_tree["controller"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put_mlp(prefix: str, mlp: Dict) -> None:
+        for i, layer in enumerate(mlp["layers"], start=1):
+            sd[f"{prefix}.mlp_layer{i}.0.weight"] = _t(layer["dense"]["weight"])
+            sd[f"{prefix}.mlp_layer{i}.0.bias"] = _t(layer["dense"]["bias"])
+            sd[f"{prefix}.mlp_layer{i}.1.weight"] = _t(layer["norm"]["weight"])
+            sd[f"{prefix}.mlp_layer{i}.1.bias"] = _t(layer["norm"]["bias"])
+
+    put_mlp("controller.mlp_f0", ctrl["mlp_f0"])
+    put_mlp("controller.mlp_loudness", ctrl["mlp_loudness"])
+    for k, layer in enumerate(ctrl["gru"]["layers"]):
+        sd[f"controller.gru.weight_ih_l{k}"] = _t(layer["w_ih"])
+        sd[f"controller.gru.weight_hh_l{k}"] = _t(layer["w_hh"])
+        sd[f"controller.gru.bias_ih_l{k}"] = _t(layer["b_ih"])
+        sd[f"controller.gru.bias_hh_l{k}"] = _t(layer["b_hh"])
+    put_mlp("controller.mlp_gru", ctrl["mlp_gru"])
+    for head in ("dense_harmonic", "dense_loudness", "dense_filter"):
+        sd[f"controller.{head}.weight"] = _t(ctrl[head]["weight"])
+        sd[f"controller.{head}.bias"] = _t(ctrl[head]["bias"])
+    for leaf in ("noise", "decay", "wet"):
+        sd[f"reverb.{leaf}"] = _t(np_tree["reverb"][leaf])
+    return decoder_from_state_dict(sd, conf)
+
+
+def crepe_from_jax(np_tree: Dict) -> Crepe:
+    """ddsp_tpu CREPE tree ``{'layers': [...], 'classifier': ...}`` with
+    numpy leaves -> :class:`Crepe` (capacity read from the widths)."""
+    layers = np_tree["layers"]
+    first_out = np.shape(layers[0]["weight"])[0]
+    capacity = next(
+        name for name, spec in CAPACITIES.items()
+        if spec["out_channels"][0] == first_out
+    )
+    model = Crepe(capacity)
+    sd = {}
+    for i, layer in enumerate(layers, start=1):
+        sd[f"conv{i}.weight"] = _t(layer["weight"])
+        sd[f"conv{i}.bias"] = _t(layer["bias"])
+        bn = layer["bn"]
+        sd[f"conv{i}_BN.weight"] = _t(bn["weight"])
+        sd[f"conv{i}_BN.bias"] = _t(bn["bias"])
+        sd[f"conv{i}_BN.running_mean"] = _t(bn["mean"])
+        sd[f"conv{i}_BN.running_var"] = _t(bn["var"])
+    sd["classifier.weight"] = _t(np_tree["classifier"]["weight"])
+    sd["classifier.bias"] = _t(np_tree["classifier"]["bias"])
+    result = model.load_state_dict(sd, strict=False)
+    missing = [k for k in result.missing_keys
+               if not k.endswith("num_batches_tracked")]
+    if missing or result.unexpected_keys:
+        raise KeyError(f"CREPE tree mismatch: {missing} {result.unexpected_keys}")
+    return model.eval()

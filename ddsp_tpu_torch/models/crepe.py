@@ -1,0 +1,119 @@
+"""CREPE pitch CNN, and loading of the reference ``.pth`` checkpoints.
+
+Counterpart of ``ddsp_tpu/models/crepe.py`` (reference crepe/crepe.py):
+six [pad -> conv (stride 4, then 1) -> ReLU -> inference BatchNorm
+(eps 1e-3) -> maxpool 2] stages over 1024-sample windows, then a sigmoid
+classifier over 360 pitch bins.  The stack runs as 1-D convolutions in the
+torch-shaped (N, C, H) layout; the JAX package's channels-last form is a
+TPU layout choice with the same math.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+PITCH_BINS = 360
+CENTS_PER_BIN = 20
+WINDOW_SIZE = 1024
+BN_EPS = 0.0010000000474974513  # MMdnn-converted epsilon (crepe/crepe.py:33-35)
+
+CAPACITIES = {
+    "full": {
+        "in_channels": [1, 1024, 128, 128, 128, 256],
+        "out_channels": [1024, 128, 128, 128, 256, 512],
+        "in_features": 2048,
+    },
+    "tiny": {
+        "in_channels": [1, 128, 16, 16, 16, 32],
+        "out_channels": [128, 16, 16, 16, 32, 64],
+        "in_features": 256,
+    },
+}
+KERNEL_SIZES = [512] + 5 * [64]
+STRIDES = [4] + 5 * [1]
+PADS = [(254, 254)] + 5 * [(31, 32)]
+
+
+class Crepe(nn.Module):
+    """Parameters named as in the reference state dict: ``conv{i}``,
+    ``conv{i}_BN`` (i = 1..6) and ``classifier``."""
+
+    def __init__(self, capacity: str = "tiny"):
+        super().__init__()
+        spec = CAPACITIES[capacity]
+        for i in range(6):
+            c_in, c_out = spec["in_channels"][i], spec["out_channels"][i]
+            self.add_module(f"conv{i + 1}", nn.Conv1d(c_in, c_out, KERNEL_SIZES[i]))
+            self.add_module(f"conv{i + 1}_BN", nn.BatchNorm1d(c_out, eps=BN_EPS))
+        self.classifier = nn.Linear(spec["in_features"], PITCH_BINS)
+
+
+def crepe_init(capacity: str = "tiny", seed: int = 0) -> Crepe:
+    """Random init (tests and serving without trained weights)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return Crepe(capacity).eval()
+
+
+def load_torch_checkpoint(path: str, capacity: str = "tiny") -> Crepe:
+    """Load a reference CREPE ``.pth`` (``convN.{weight,bias}`` with
+    (O, I, k, 1) weights, ``convN_BN.{weight,bias,running_mean,
+    running_var}``, ``classifier.{weight,bias}``)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    model = Crepe(capacity)
+    mapped = {}
+    for key, ref in model.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        if key not in sd:
+            raise KeyError(f"{path}: missing {key!r}")
+        value = sd[key].to(torch.float32)
+        if value.dim() == ref.dim() + 1:  # (O, I, k, 1) -> (O, I, k)
+            value = value[..., 0]
+        mapped[key] = value
+    model.load_state_dict(mapped, strict=False)
+    return model.eval()
+
+
+def _layer(x: torch.Tensor, conv: nn.Conv1d, bn: nn.BatchNorm1d,
+           stride: int, pad) -> torch.Tensor:
+    """pad -> conv1d -> relu -> inference BN -> maxpool(2, stride 2)."""
+    x = F.conv1d(F.pad(x, pad), conv.weight, stride=stride)
+    x = torch.relu(x + conv.bias[:, None])
+    scale = bn.weight * torch.rsqrt(bn.running_var + BN_EPS)
+    x = (x - bn.running_mean[:, None]) * scale[:, None] + bn.bias[:, None]
+    return F.max_pool1d(x, 2, 2)
+
+
+def crepe_forward(crepe: Crepe, frames: torch.Tensor) -> torch.Tensor:
+    """(B, 1024) windows -> (B, 360) sigmoid pitch-bin probabilities,
+    with the reference's h-major flatten of the final (B, C, H) map."""
+    x = frames[:, None, :]
+    for i in range(6):
+        x = _layer(x, getattr(crepe, f"conv{i + 1}"),
+                   getattr(crepe, f"conv{i + 1}_BN"), STRIDES[i], PADS[i])
+    b, c, h = x.shape
+    x = x.transpose(1, 2).reshape(b, h * c)
+    return torch.sigmoid(crepe.classifier(x))
+
+
+def cents_map(bins: torch.Tensor) -> torch.Tensor:
+    """Pitch-bin index -> cents (reference encoder.py:39-41)."""
+    return bins * CENTS_PER_BIN + 1997.3794084376191
+
+
+def freq_map(cents: torch.Tensor) -> torch.Tensor:
+    """Cents -> Hz (reference encoder.py:46-48)."""
+    return 10 * 2 ** (cents / 1200)
+
+
+def pitch_argmax(probabilities: torch.Tensor):
+    """Argmax pitch decode (reference encoder.py:120-128): (..., 360) ->
+    (freq, harmonicity, normalized_cents), each (..., 1)."""
+    bins = probabilities.argmax(dim=-1, keepdim=True)
+    fbins = bins.to(probabilities.dtype)
+    freq = freq_map(cents_map(fbins))
+    harmonicity = probabilities.gather(-1, bins)
+    return freq, harmonicity, fbins / 359.0

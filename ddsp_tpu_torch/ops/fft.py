@@ -1,0 +1,56 @@
+"""Real FFT pairs on ``torch.fft``.
+
+The JAX package evaluates every transform as DFT matmuls or its own
+Cooley-Tukey layer because its TPU backend has no FFT.  That layer was
+never a Pallas kernel; on the GPU ``torch.fft`` (cuFFT) computes the same
+transforms, so only the (re, im) pair interface is kept here.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def next_fft_size(n: int) -> int:
+    """Smallest FFT size >= n that is a power of two or 3 * 2^k."""
+    p2 = next_pow2(n)
+    p3 = 3 * next_pow2((n + 2) // 3)
+    return min(x for x in (p2, p3) if x >= n)
+
+
+def rfft_pair(
+    x: torch.Tensor, n: Optional[int] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Real-input FFT over the last axis -> (re, im), each (..., n//2+1).
+
+    ``n`` larger than the input zero-pads it, as ``numpy.fft.rfft`` does.
+    """
+    spec = torch.fft.rfft(x, n=n or x.shape[-1], dim=-1)
+    return spec.real.contiguous(), spec.imag.contiguous()
+
+
+def irfft_pair(
+    re: torch.Tensor,
+    im: torch.Tensor,
+    n: Optional[int] = None,
+    out_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Inverse of :func:`rfft_pair`: (..., n//2+1) spectra -> (..., n).
+
+    ``out_len`` keeps only the first ``out_len`` output samples (the causal
+    half of a linear convolution).
+    """
+    n = n or 2 * (re.shape[-1] - 1)
+    out = torch.fft.irfft(torch.complex(re, im), n=n, dim=-1)
+    if out_len is not None and out_len < n:
+        out = out[..., :out_len]
+    return out

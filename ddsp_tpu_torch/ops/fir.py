@@ -1,0 +1,201 @@
+"""Counter-based noise and the spectral FIR filter of the noise branch.
+
+Counterpart of ``ddsp_tpu/ops/fir.py`` for the serving path:
+
+* ``threefry_2x32``, ``PRNGKey`` and ``fold_in`` reproduce jax's default
+  (threefry) keys bit for bit, so a noise stream keyed here equals the
+  JAX package's for the same seed;
+* ``frame_noise`` is a pure function of (key, row, absolute sample), which
+  is what makes block-by-block streaming equal to an offline render;
+* ``convolve_designed_fir`` folds the FIR design of the reference
+  (filtered_noise.py:7-22: irfft of zero-phase magnitudes, roll, Hann
+  window, pad) and the convolution's forward transform into one
+  precomputed (n_filters, n_bins) matrix pair.
+
+Torch has no 32-bit unsigned shifts on every device, so the 32-bit cipher
+arithmetic runs in int64 with explicit masking: every value stays in
+[0, 2^32).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ddsp_tpu_torch.ops.fft import irfft_pair, next_fft_size, rfft_pair
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def _threefry_pair(k0, k1, x0, x1):
+    """Threefry-2x32 (20 rounds) of counter words (x0, x1) under key
+    (k0, k1); all int64 tensors holding uint32 values, broadcast together."""
+    k2 = k0 ^ k1 ^ 0x1BD11BDA
+    ks = (k0, k1, k2)
+    x0 = (x0 + k0) & _MASK
+    x1 = (x1 + k1) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x0, x1
+
+
+def threefry_2x32(key: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """jax's ``threefry_2x32(keypair, count)``: the flat count is split in
+    halves that form the two cipher lanes (odd sizes padded with one 0),
+    and the two output lanes are concatenated back.  uint32 values held in
+    int64; returns the shape of ``count``."""
+    flat = count.reshape(-1).to(torch.int64)
+    odd = flat.shape[0] % 2
+    if odd:
+        flat = torch.cat([flat, flat.new_zeros(1)])
+    x0, x1 = flat.chunk(2)
+    y0, y1 = _threefry_pair(key[0], key[1], x0, x1)
+    out = torch.cat([y0, y1])
+    if odd:
+        out = out[:-1]
+    return out.reshape(count.shape)
+
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:  # noqa: N802 -- jax name
+    """jax's legacy ``PRNGKey(seed)``: [seed >> 32, seed & 0xFFFFFFFF]."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return torch.tensor([seed >> 32, seed & _MASK], dtype=torch.int64,
+                        device=device)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """jax's ``fold_in``: ``threefry_2x32(key, [0, data])``.
+
+    ``key``: (..., 2); ``data``: int or int tensor broadcasting against
+    ``key[..., 0]``.  Returns (..., 2) keys."""
+    data = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _MASK
+    y0, y1 = _threefry_pair(key[..., 0], key[..., 1], torch.zeros_like(data),
+                            data)
+    return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
+
+
+def noise_from_counts(row_keys: torch.Tensor, counts: torch.Tensor,
+                      dtype=torch.float32) -> torch.Tensor:
+    """Uniform [-1, 1) noise at absolute sample ``counts`` under per-row
+    keys: row_keys (B, 2), counts (B, L) int64 -> (B, L).
+
+    Each word is the first output lane of threefry on the pair
+    (count mod 2^32, 0); its top 24 bits map exactly onto [-1, 1)."""
+    bits, _ = _threefry_pair(
+        row_keys[:, :1], row_keys[:, 1:], counts & _MASK,
+        torch.zeros_like(counts),
+    )
+    return ((bits >> 8).to(torch.float32) * 2.0**-23 - 1.0).to(dtype)
+
+
+def frame_noise(
+    key: torch.Tensor,
+    batch: int,
+    n_frames: int,
+    block_size: int,
+    frame_offset=0,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """(B, n_frames, block_size) uniform noise in [-1, 1).
+
+    Row b uses the key ``fold_in(key, b)`` over the absolute samples
+    ``frame_offset * block_size + [0, n_frames * block_size)``, so a
+    stream rendered block by block draws the same noise as an offline
+    render.  Counters wrap at 2^32 samples (~27 hours at 44.1 kHz)."""
+    row_keys = fold_in(key, torch.arange(batch, device=key.device))
+    n = n_frames * block_size
+    start = torch.as_tensor(frame_offset, dtype=torch.int64,
+                            device=key.device) * block_size
+    counts = (start + torch.arange(n, device=key.device)).expand(batch, n)
+    u = noise_from_counts(row_keys, counts, dtype)
+    return u.reshape(batch, n_frames, block_size)
+
+
+@functools.lru_cache(maxsize=None)
+def _design_spectrum_mats(n_filters: int, block_size: int, n_fft: int):
+    """(n_filters, n_fft//2+1) cos/sin pair: magnitudes -> kernel spectrum.
+
+    The FIR design (irfft of a zero-phase magnitude response, roll to
+    causal, Hann window, zero-pad to ``block_size``, roll back) followed by
+    the convolution's forward rDFT at ``n_fft`` is one linear map of the
+    ``n_filters`` magnitudes, composed here in float64 and cast to float32.
+    """
+    fs = 2 * (n_filters - 1)
+    if block_size < fs:
+        raise ValueError(f"block_size {block_size} < designed FIR length {fs}")
+    k = np.arange(n_filters, dtype=np.float64)[:, None]
+    t = np.arange(fs, dtype=np.float64)[None, :]
+    scale = np.full((n_filters, 1), 2.0 / fs)
+    scale[0, 0] = 1.0 / fs
+    scale[-1, 0] = 1.0 / fs  # n_filters-1 == fs//2 by construction
+    design = np.cos(2.0 * np.pi * k * t / fs) * scale
+    design = np.roll(design, fs // 2, axis=1)
+    design = design * (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(fs) / fs))
+    design = np.pad(design, ((0, 0), (0, block_size - fs)))
+    design = np.roll(design, -(fs // 2), axis=1)  # (n_filters, block_size)
+    tt = np.arange(block_size, dtype=np.float64)[:, None]
+    kk = np.arange(n_fft // 2 + 1, dtype=np.float64)[None, :]
+    ang = -2.0 * np.pi * tt * kk / n_fft
+    wre = design @ np.cos(ang)
+    wri = design @ np.sin(ang)
+    return wre.astype(np.float32), wri.astype(np.float32)
+
+
+def convolve_designed_fir(
+    filter_mags: torch.Tensor, frames: torch.Tensor
+) -> torch.Tensor:
+    """Convolve per-frame signals with the FIR designed from ``filter_mags``.
+
+    The same as a causal linear convolution of each frame with
+    ``amp_to_impulse_response(filter_mags, block_size)``, truncated to the
+    frame, evaluated spectrally.
+
+    Args:
+      filter_mags: (B, T, n_filters) per-frame magnitude responses.
+      frames: (B, T, block_size) per-frame signals (noise blocks).
+
+    Returns:
+      (B, T*block_size) filtered signal, frames concatenated.
+    """
+    b, t, nf = filter_mags.shape
+    block_size = frames.shape[-1]
+    n = next_fft_size(2 * block_size - 1)
+    wre, wri = (
+        torch.as_tensor(m, device=filter_mags.device)
+        for m in _design_spectrum_mats(nf, block_size, n)
+    )
+    kr = filter_mags @ wre
+    ki = filter_mags @ wri
+    sr, si = rfft_pair(frames, n)
+    out = irfft_pair(sr * kr - si * ki, sr * ki + si * kr, n,
+                     out_len=block_size)
+    return out.reshape(b, t * block_size)
+
+
+def filtered_noise(
+    filter_mags: torch.Tensor,
+    key: torch.Tensor,
+    block_size: int,
+    frame_offset=0,
+) -> torch.Tensor:
+    """Time-varying FIR-filtered uniform noise, (B, T*block_size).
+
+    Args:
+      filter_mags: (B, T, n_filters) per-frame magnitude responses.
+      block_size: samples per frame (= hop length).
+    """
+    b, t, _ = filter_mags.shape
+    noise = frame_noise(key, b, t, block_size, frame_offset,
+                        filter_mags.dtype)
+    return convolve_designed_fir(filter_mags, noise)

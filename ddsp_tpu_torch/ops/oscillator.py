@@ -1,0 +1,221 @@
+"""Harmonic oscillator bank: phase in cycles, split-precision sines.
+
+Counterpart of ``ddsp_tpu/ops/oscillator.py``.  The reference oscillator
+(model/ddsp/harmonic_oscillator.py) zeroes harmonics above Nyquist,
+renormalises their amplitudes, accumulates phase sample by sample and sums
+``loudness * amp_h * sin(phase_h)``.  As in the JAX package:
+
+* only the fundamental's phase is accumulated, in cycles, because every
+  harmonic's phase is an integer multiple of it (mod 1);
+* linear upsampling makes the within-hop partial sums of the phase
+  increments a fixed (hop, 3) map of the three neighbouring frames, so the
+  only sequential dependency is a frame-rate prefix, done in 128-frame
+  blocks with an exact 1/4096-grid split and a Kahan carry across blocks;
+* ``sin(2 pi h phi)`` is evaluated from a split ``phi = hi + lo`` with
+  ``hi`` on the 1/4096 grid, so ``h * hi`` is exact in float32.
+
+``render_hop_rows`` (one hop per serving slot) sends the audio-rate stage
+to ``ops/cuda/oscillator.osc_hop_slots``: the CUDA kernel for CUDA tensors,
+its plain PyTorch version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ddsp_tpu_torch.ops.interp import hop_weight_cumsum, hop_weights
+
+TWO_PI = 2.0 * np.pi
+QUANT = 4096.0  # split grid: h * coarse phase is exact in f32 for h <= 2048
+_PHASE_BLOCK = 128  # two-level phase prefix: parallel within, Kahan across
+
+
+def nyquist_normalized_amps(
+    f0: torch.Tensor, harm_amps: torch.Tensor, sample_rate: int
+) -> torch.Tensor:
+    """Zero amplitudes of harmonics above Nyquist, renormalise to sum 1.
+
+    Strict ``h * f0 > sample_rate // 2`` comparison and division without
+    epsilon, as the reference (harmonic_oscillator.py:24-33).
+
+    Args:
+      f0: (..., 1) fundamental frequency in Hz.
+      harm_amps: (..., H) harmonic amplitude distribution.
+    """
+    n_harmonics = harm_amps.shape[-1]
+    h = torch.arange(1, n_harmonics + 1, dtype=f0.dtype, device=f0.device)
+    amps = torch.where((f0 * h) > (sample_rate // 2), 0.0, harm_amps)
+    return amps / amps.sum(dim=-1, keepdim=True)
+
+
+def _fundamental_phase_cycles(
+    f0_pad: torch.Tensor,
+    hop: int,
+    sample_rate: int,
+    initial_phase: torch.Tensor,
+) -> torch.Tensor:
+    """Fractional fundamental phase (cycles, [0, 1)) at audio rate.
+
+    Args:
+      f0_pad: (B, T+2) fundamental in Hz with one frame of context each side.
+      initial_phase: (B,) fundamental phase (cycles) entering the span.
+
+    Returns:
+      (B, T, hop) fractional cycles.  Within blocks of 128 frames the hop
+      boundaries come from a parallel prefix on the exact 1/4096-grid split
+      (the coarse partial sums are exact; the residual's are ~1e-8); only
+      the per-block totals go through a Kahan-compensated carry.
+    """
+    w = f0_pad / sample_rate  # cycles per sample, frame rate
+    left, mid, right = w[:, :-2], w[:, 1:-1], w[:, 2:]  # (B, T)
+    csum = torch.as_tensor(hop_weight_cumsum(hop), device=f0_pad.device)
+    partial = (
+        left[:, :, None] * csum[:, 0]
+        + mid[:, :, None] * csum[:, 1]
+        + right[:, :, None] * csum[:, 2]
+    )  # (B, T, hop) inclusive within-hop partial sums
+    delta = partial[:, :, -1]
+    delta = delta - torch.floor(delta)  # whole cycles are phase-irrelevant
+
+    b, t = delta.shape
+    block = _PHASE_BLOCK
+    nb = -(-t // block)
+    d = F.pad(delta, (0, nb * block - t)).reshape(b, nb, block)
+    hi = torch.floor(d * QUANT) * (1.0 / QUANT)
+    lo = d - hi
+    csum_hi = torch.cumsum(hi, dim=-1)  # exact: grid multiples <= block
+    csum_lo = torch.cumsum(lo, dim=-1)
+    excl_hi = csum_hi - hi
+    excl_lo = csum_lo - lo
+    excl = (excl_hi - torch.floor(excl_hi)) + excl_lo  # (B, nb, block)
+
+    tot_hi = csum_hi[..., -1]
+    totals = (tot_hi - torch.floor(tot_hi)) + csum_lo[..., -1]  # (B, nb)
+
+    s = initial_phase - torch.floor(initial_phase)
+    c = torch.zeros_like(s)
+    starts = []
+    for i in range(nb):  # Kahan carry over blocks (nb = 1 for a serving hop)
+        starts.append(s)
+        y = totals[:, i] - c
+        tt = s + y
+        c = (tt - s) - y
+        s = tt - torch.floor(tt)
+    block0 = torch.stack(starts, dim=1)  # (B, nb)
+
+    boundary = block0[:, :, None] + excl
+    boundary = (boundary - torch.floor(boundary)).reshape(b, nb * block)[:, :t]
+    phi = boundary[:, :, None] + partial
+    return phi - torch.floor(phi)
+
+
+def harmonic_sines(phase1: torch.Tensor, n_harmonics: int) -> torch.Tensor:
+    """sin(2 pi h phi) for h = 1..H from the fundamental phase, (..., H).
+
+    ``phi = hi + lo`` with ``hi`` on the 1/4096 grid makes ``h * hi`` exact,
+    so the harmonic phase error stays ~h * ulp(phi) instead of ulp(h * phi).
+    """
+    h = torch.arange(
+        1, n_harmonics + 1, dtype=phase1.dtype, device=phase1.device
+    )
+    hi = torch.floor(phase1 * QUANT) / QUANT
+    lo = phase1 - hi
+    coarse = hi[..., None] * h  # exact
+    coarse = coarse - torch.floor(coarse)
+    frac = coarse + lo[..., None] * h
+    frac = frac - torch.floor(frac)
+    return torch.sin(TWO_PI * frac)
+
+
+def _render_from_phase(
+    phase1: torch.Tensor,  # (B, T, hop) fractional fundamental phase
+    amps_pad: torch.Tensor,  # (B, T+2, H) masked + renormalised amplitudes
+    loud_pad: torch.Tensor,  # (B, T+2) overall loudness
+) -> torch.Tensor:
+    """sum_h amp_h(i) sin(2 pi h phi(i)) with linearly interpolated controls.
+
+    The plain version: it materialises the (B, T, hop, H) sine tensor and
+    contracts it with the three amplitude windows.  Returns (B, T*hop).
+    """
+    b, t, hop = phase1.shape
+    sines = harmonic_sines(phase1, amps_pad.shape[-1])
+    amp_win = torch.stack(
+        [amps_pad[:, :-2], amps_pad[:, 1:-1], amps_pad[:, 2:]], dim=2
+    )  # (B, T, 3, H)
+    s = torch.einsum("btjh,btkh->btjk", sines, amp_win)
+    w = torch.as_tensor(hop_weights(hop), device=phase1.device)
+    harm = torch.einsum("btjk,jk->btj", s, w)
+    loud_win = torch.stack(
+        [loud_pad[:, :-2], loud_pad[:, 1:-1], loud_pad[:, 2:]], dim=2
+    )
+    loud_up = torch.einsum("btk,jk->btj", loud_win, w)
+    return (loud_up * harm).reshape(b, t * hop)
+
+
+def render_padded(
+    f0_pad: torch.Tensor,
+    amps_pad: torch.Tensor,
+    loud_pad: torch.Tensor,
+    *,
+    sample_rate: int,
+    hop: int,
+    initial_phase: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Render audio from frame-rate controls that carry 1 frame of context.
+
+    Args:
+      f0_pad: (B, T+2, 1) Hz.  amps_pad: (B, T+2, H).  loud_pad: (B, T+2, 1).
+        Index 0 is the frame before the span, index T+1 the frame after.
+      initial_phase: (B,) fundamental phase entering the span, in cycles.
+
+    Returns:
+      (audio (B, T*hop), final fundamental phase (B,)).
+    """
+    if initial_phase is None:
+        initial_phase = torch.zeros(
+            f0_pad.shape[0], dtype=f0_pad.dtype, device=f0_pad.device
+        )
+    amps_pad = nyquist_normalized_amps(f0_pad, amps_pad, sample_rate)
+    phase1 = _fundamental_phase_cycles(
+        f0_pad[..., 0], hop, sample_rate, initial_phase
+    )
+    audio = _render_from_phase(phase1, amps_pad, loud_pad[..., 0])
+    return audio, phase1[:, -1, -1]
+
+
+def render_hop_rows(
+    f0_pad: torch.Tensor,  # (N, 3, 1): each row's (prev, cur, next) f0
+    amps_pad: torch.Tensor,  # (N, 3, H)
+    loud_pad: torch.Tensor,  # (N, 3, 1)
+    *,
+    sample_rate: int,
+    hop: int,
+    initial_phase: torch.Tensor,  # (N,) per-row fundamental phase, cycles
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Render ONE hop for N independent rows (the serving case).
+
+    Semantically ``render_padded`` at T=1, each row a separate stream with
+    its own 3-frame context.  The audio-rate stage is ``osc_hop_slots``:
+    the CUDA kernel on a CUDA tensor, the plain version on a CPU tensor.
+    Forward only.  Returns (audio (N, hop), final phase (N,)).
+    """
+    from ddsp_tpu_torch.ops.cuda.oscillator import osc_hop_slots
+
+    amps_n = nyquist_normalized_amps(f0_pad, amps_pad, sample_rate)
+    phase1 = _fundamental_phase_cycles(
+        f0_pad[..., 0], hop, sample_rate, initial_phase
+    )  # (N, 1, hop)
+    w = torch.as_tensor(hop_weights(hop), device=f0_pad.device)
+    audio = osc_hop_slots(
+        phase1[:, 0].contiguous(),
+        amps_n[:, 0].contiguous(),
+        amps_n[:, 1].contiguous(),
+        amps_n[:, 2].contiguous(),
+        loud_pad[..., 0].contiguous(),
+        w,
+    )
+    return audio, phase1[:, -1, -1]

@@ -1,0 +1,60 @@
+"""Framing and A-weighted loudness.
+
+Counterpart of the loudness part of ``ddsp_tpu/ops/spectral.py``:
+``torch.stft(center=False)`` with no window and the librosa A-weighting
+curve, as in the reference loudness encoder (encoder.py:135-156).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ddsp_tpu_torch.ops.fft import rfft_pair
+
+
+def frame_signal(x: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
+    """(..., L) -> (..., n_frames, frame_length) overlapping frames."""
+    return x.unfold(-1, frame_length, hop)
+
+
+def stft_magnitude_nocenter(
+    x: torch.Tensor, n_fft: int, hop: int
+) -> torch.Tensor:
+    """|STFT| with center=False and a rectangular window,
+    (..., T, n_fft//2+1)."""
+    re, im = rfft_pair(frame_signal(x, n_fft, hop))
+    return torch.sqrt(re * re + im * im)
+
+
+@functools.lru_cache(maxsize=None)
+def a_weighting(n_fft: int, sample_rate: int, min_db: float = -80.0) -> np.ndarray:
+    """A-weighting in dB for the rfft bin frequencies (librosa formula)."""
+    freqs = np.linspace(0, sample_rate / 2, 1 + n_fft // 2, dtype=np.float64)
+    f_sq = freqs**2
+    const = np.array([12194.217, 20.598997, 107.65265, 737.86223]) ** 2
+    with np.errstate(divide="ignore"):
+        weights = 2.0 + 20.0 * (
+            np.log10(const[0])
+            + 2 * np.log10(np.where(f_sq > 0, f_sq, 1.0))
+            - np.log10(f_sq + const[0])
+            - np.log10(f_sq + const[1])
+            - 0.5 * np.log10(f_sq + const[2])
+            - 0.5 * np.log10(f_sq + const[3])
+        )
+        weights = np.where(f_sq > 0, weights, -np.inf)
+    return np.maximum(min_db, weights).astype(np.float32)
+
+
+def a_weighted_loudness(
+    x: torch.Tensor, n_fft: int, hop: int, sample_rate: int
+) -> torch.Tensor:
+    """Per-frame A-weighted loudness, (..., T, 1): dB of the rectangular
+    STFT magnitudes plus A-weighting, mapped by ``db/90 + 1`` and averaged
+    over bins."""
+    mag = stft_magnitude_nocenter(x, n_fft, hop)
+    db = 20.0 * torch.log10(mag + 1e-20)
+    db = db + torch.as_tensor(a_weighting(n_fft, sample_rate), device=x.device)
+    return (db / 90.0 + 1.0).mean(dim=-1, keepdim=True)

@@ -1,0 +1,113 @@
+"""Import hygiene of the port, and its refusal to fall back to the CPU.
+
+The port must run on a machine with no jax: neither importing any of its
+modules nor ``chip_smoke.py`` may load jax or the JAX package.  Its
+serving entry points default to CUDA and must raise, not quietly run on
+the CPU, when there is no GPU and the caller did not ask for the CPU.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+import ddsp_tpu_torch
+from ddsp_tpu_torch.config import Config
+from ddsp_tpu_torch.models.controller import decoder_init
+from ddsp_tpu_torch.models.crepe import crepe_init
+from ddsp_tpu_torch.runtime import server
+from ddsp_tpu_torch.runtime.multistream import MultiStreamServer
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _banned(name: str) -> bool:
+    return name == "jax" or name.startswith(("jax.", "jaxlib")) or (
+        name == "ddsp_tpu" or name.startswith("ddsp_tpu.")
+    )
+
+
+def test_every_module_imports_without_jax():
+    code = textwrap.dedent(
+        """
+        import importlib, pkgutil, sys
+        import ddsp_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            ddsp_tpu_torch.__path__, "ddsp_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        print(len(names))
+        print(",".join(sorted(m for m in sys.modules
+              if m == "jax" or m.startswith(("jax.", "jaxlib"))
+              or m == "ddsp_tpu" or m.startswith("ddsp_tpu."))))
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    count, loaded = proc.stdout.split("\n")[:2]
+    assert int(count) >= 18
+    assert loaded == "", f"port imports pulled in {loaded}"
+
+
+def test_chip_smoke_imports_no_jax():
+    tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert any(n.startswith("ddsp_tpu_torch") for n in names)
+    assert not [n for n in names if _banned(n)]
+
+
+def test_package_source_never_names_jax_imports():
+    pkg = os.path.dirname(ddsp_tpu_torch.__file__)
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                tree = ast.parse(open(os.path.join(dirpath, f)).read())
+                for node in ast.walk(tree):
+                    if isinstance(node, ast.Import):
+                        assert not [a.name for a in node.names if _banned(a.name)], f
+                    elif isinstance(node, ast.ImportFrom) and node.module:
+                        assert not _banned(node.module), f
+
+
+CONF = Config(
+    sample_rate=4000, n_fft=256, hop_length=64, n_harmonics=12,
+    n_noise_filters=9, decoder_mlp_units=16, decoder_mlp_layers=1,
+    decoder_gru_units=16, reverb_length=300,
+)
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", ["multistream", "stream_server", "cli"])
+def test_entry_points_raise_without_cuda(no_cuda, entry, tmp_path):
+    params, crepe = decoder_init(CONF), crepe_init()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "multistream":
+            MultiStreamServer(params, crepe, CONF, n_streams=2)
+        elif entry == "stream_server":
+            server.StreamServer(params, crepe, CONF, str(tmp_path / "s.sock"))
+        else:
+            server.main(["--lightning_ckpt=missing.ckpt", "--n_streams=2"])
+
+
+def test_explicit_cpu_runs(no_cuda):
+    srv = MultiStreamServer(decoder_init(CONF), crepe_init(), CONF, n_streams=2,
+                            device="cpu")
+    out = srv.process(torch.zeros(2, CONF.hop_length).numpy())
+    assert out.shape == (2, CONF.hop_length)
