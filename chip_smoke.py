@@ -5,9 +5,10 @@
 
 Phases, each of which must pass (any failure exits non-zero):
 
-1. the card's name and power limit, as nvidia-smi reports them;
-2. kernel vs plain: ``osc_hop_slots`` is built from
-   ``ddsp_tpu_torch/csrc/`` with nvcc for sm_90a and held against its plain
+1. the card's name and power limit, as nvidia-smi reports them; every
+   kernel source in ``ddsp_tpu_torch/csrc/`` is built with nvcc for
+   sm_90a, one nvcc per source, all started together;
+2. kernel vs plain: ``osc_hop_slots`` is held against its plain
    PyTorch version at the serving shape (N=256, hop 512, H=180) and at a
    ragged shape (N=13, hop 128, H=40), SNR > 90 dB; both are timed with
    CUDA events beside the kernel's bound;
@@ -19,7 +20,26 @@ Phases, each of which must pass (any failure exits non-zero):
    11.6 ms hop deadline;
 4. the socket server: ``StreamServer`` at full width on a unix socket, four
    concurrent clients streaming 1 s each, each equal to its slot driven
-   through ``MultiStreamServer``.
+   through ``MultiStreamServer``;
+5. the frame oscillator kernels ``osc_frames_fwd`` / ``osc_frames_bwd``
+   against their plain version and its autograd, at the training shape
+   (B=16, T=172, hop 512, H=180, h_start 0) and a ragged one (B=2, T=18,
+   hop 128, H=40, h_start 8): forward SNR > 90 dB, each gradient > 80 dB,
+   two backward runs bit-equal; kernels, plain forward and plain
+   forward + backward timed with CUDA events beside the bounds;
+6. one train step at full ``Config()`` width, batch 2, on the card
+   (kernels) and on the CPU (plain path) from the same weights, batch and
+   key: the step's gradients, leaf by leaf, within 1e-3 of the CPU's in
+   norm (plus 1e-6 of the whole gradient's norm), ``grad_norm`` within
+   1e-3 relative, loss within max(1e-2, 1e-6 |loss|); the updated
+   parameters at allclose(rtol=2e-3, atol=3e-3), a sanity check only,
+   since one Adam step moves a parameter by at most lr = 1e-3;
+7. the training CLI at full width: ``ddsp_tpu_torch.training.train.main``
+   on synthetic WAV files, batch 16, 30 steps in windows of 10, a
+   checkpoint every 10 steps.  The backward kernel must launch once per
+   step and the forward kernel once per step plus once per
+   reconstruction dump; every logged loss is finite; the last checkpoint
+   restores with equal parameters; median ms per step is printed.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA the script exits
@@ -56,6 +76,23 @@ PEAK_BYTES_PER_S = 3.35e12
 # instructions), three window multiply-adds, and the exact re-seed every
 # 8 harmonics amortised (~2): 9 FMAs, 18 FLOP.
 FLOP_PER_POINT = 18
+# The frame backward per point: the (sin, cos) rotation, the seed
+# amortised, and three window sums each for harm, the phase derivative
+# and the window-amplitude gradient: 14 FMAs, 28 FLOP.
+FLOP_PER_POINT_BWD = 28
+GRAD_SNR_FLOOR_DB = 80.0
+FRAME_SHAPES = ((16, 172, 512, 180, 0), (2, 18, 128, 40, 8))  # B, T, hop, H, h_start
+TRAIN_STEPS, TRAIN_WINDOW = 30, 10
+PARAM_RTOL, PARAM_ATOL = 2e-3, 3e-3  # __graft_entry__.py's one-step criterion
+# __graft_entry__.py holds the loss to 1e-2 at its tiny width, where the
+# loss is O(1-100).  Random full-width weights give a loss of ~5.6e4, whose
+# float32 ulp is 3.9e-3; there 1e-6 relative (16 ulps) is the criterion.
+LOSS_ATOL, LOSS_RTOL = 1e-2, 1e-6
+# Card vs CPU gradients: each leaf's |g_card - g_cpu| (L2) within
+# GRAD_RTOL of |g_cpu| plus GRAD_FLOOR of the whole gradient's norm, so a
+# leaf holding a millionth of the gradient cannot fail on rounding alone;
+# the 1e-3 is test_torch_training.py's grad_norm tolerance against JAX.
+GRAD_RTOL, GRAD_FLOOR = 1e-3, 1e-6
 
 
 def log(msg: str) -> None:
@@ -101,6 +138,27 @@ def tone_blocks(n_streams: int, n_hops: int, hop: int, sample_rate: int, seed: i
     return x.astype(np.float32).reshape(n_streams, n_hops, hop).transpose(1, 0, 2).copy()
 
 
+def build_kernels():
+    """Build every ``csrc/*.cu`` at once (one nvcc each, in parallel) and
+    print each library and its ptxas register/spill report."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ddsp_tpu_torch.ops.cuda import build
+
+    names = sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = list(pool.map(build.build, names))
+    log(f"[build] {', '.join(names)} in {time.perf_counter() - t0:.1f} s")
+    for lib in libs:
+        log(f"[build] {os.path.relpath(lib, ROOT)}")
+        ptxas = lib.with_suffix(".log")
+        if ptxas.exists():
+            for line in ptxas.read_text().splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    log(f"[build] ptxas: {line.strip()}")
+
+
 # --------------------------------------------------------------- phase 2
 
 
@@ -130,15 +188,6 @@ def phase_kernel(device):
     import torch
 
     from ddsp_tpu_torch.ops.cuda import oscillator as osc_cuda
-
-    t0 = time.perf_counter()
-    lib = osc_cuda.build()
-    log(f"[kernel] built {os.path.relpath(lib, ROOT)} in {time.perf_counter() - t0:.1f} s")
-    ptxas = lib.with_suffix(".log")
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[kernel] ptxas: {line.strip()}")
 
     result = {}
     for n, hop, h in ((N_SLOTS, 512, 180), (13, 128, 40)):
@@ -313,6 +362,281 @@ def phase_socket(device, params, crepe, conf):
         log(f"[socket] client {i} (slot {slot}) vs MultiStreamServer: max |err| {err:.3e}")
         require(err <= SLOT_ATOL, f"client {i} differs from its slot by {err:.3e}")
 
+# --------------------------------------------------------------- phase 5
+
+
+def frame_operands(b: int, t: int, hop: int, h: int, h_start: int, device, seed: int):
+    """The frame kernels' operands as the training step makes them: phase
+    in cycles, Nyquist-normalised amplitude rows (44.1 kHz, f0 80-600 Hz),
+    loudness in [0, 1], and a Gaussian audio gradient."""
+    import torch
+
+    from ddsp_tpu_torch.ops.oscillator import nyquist_normalized_amps
+
+    rng = np.random.default_rng(seed)
+    f0 = torch.tensor(rng.uniform(80.0, 600.0, (b, t + 2, 1)), dtype=torch.float32)
+    amps = torch.tensor(rng.uniform(0.01, 1.0, (b, t + 2, h)), dtype=torch.float32)
+    amps = nyquist_normalized_amps(f0, amps, 44100, h_start=h_start)
+    arrays = (rng.uniform(0.0, 1.0, (b, t, hop)), amps.numpy(),
+              rng.uniform(0.0, 1.0, (b, t + 2)), rng.standard_normal((b, t * hop)))
+    return [torch.tensor(a, dtype=torch.float32, device=device) for a in arrays]
+
+
+def frame_bounds_ms(b: int, t: int, hop: int, h: int):
+    """(forward, backward) bounds: each a (ms, "operations" | "bytes")."""
+    points = b * t * hop * h
+    samples, rows = b * t * hop, b * (t + 2)
+    fwd_bytes = 4 * (samples + rows * h + rows + 3 * hop + samples)
+    # in: g, phase, amps_pad, loud_pad, w; out: dphase, d amps_pad, d loud_pad
+    bwd_bytes = 4 * (2 * samples + rows * h + rows + 3 * hop + samples + rows * h + rows)
+    out = []
+    for flop, n_bytes in ((FLOP_PER_POINT * points, fwd_bytes),
+                          (FLOP_PER_POINT_BWD * points, bwd_bytes)):
+        t_ops, t_bytes = flop / PEAK_FP32_FLOPS, n_bytes / PEAK_BYTES_PER_S
+        out.append((1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"))
+    return out
+
+
+def phase_frames(device):
+    import torch
+
+    from ddsp_tpu_torch.ops.cuda import osc_frames
+
+    result = {}
+    for b, t, hop, h, h_start in FRAME_SHAPES:
+        shape = f"B={b} T={t} hop={hop} H={h} h_start={h_start}"
+        phase, amps, loud, g = frame_operands(b, t, hop, h, h_start, device, seed=b * t)
+        got = osc_frames.osc_frames_fwd(phase, amps, loud, h_start)
+        grads = osc_frames.osc_frames_bwd(g, phase, amps, loud, h_start)
+        again = osc_frames.osc_frames_bwd(g, phase, amps, loud, h_start)
+        torch.cuda.synchronize()
+        want = osc_frames.render_from_phase_plain(phase, amps, loud, h_start)
+        want_grads = osc_frames.render_from_phase_bwd_plain(g, phase, amps, loud, h_start)
+        got_np, want_np = got.cpu().numpy(), want.cpu().numpy()
+        require(np.isfinite(got_np).all(), f"frame forward not finite at {shape}")
+        fwd_snr = snr_db(want_np, got_np)
+        fwd_err = float(np.abs(got_np - want_np).max())
+        require(fwd_snr > KERNEL_SNR_FLOOR_DB,
+                f"frame forward vs plain SNR {fwd_snr:.2f} dB <= {KERNEL_SNR_FLOOR_DB} at {shape}")
+        grad_snr, grad_err = {}, {}
+        for name, a, c, c2 in zip(("dphase", "damps", "dloud"), want_grads, grads, again):
+            a_np, c_np = a.cpu().numpy(), c.cpu().numpy()
+            require(np.isfinite(c_np).all(), f"{name} not finite at {shape}")
+            require(torch.equal(c, c2), f"{name} differs between two backward runs at {shape}")
+            grad_snr[name] = snr_db(a_np, c_np)
+            grad_err[name] = float(np.abs(c_np - a_np).max())
+            require(grad_snr[name] > GRAD_SNR_FLOOR_DB,
+                    f"{name} vs autograd SNR {grad_snr[name]:.2f} dB <= {GRAD_SNR_FLOOR_DB} at {shape}")
+        del want, want_grads, got, grads, again
+        fwd_ms = cuda_ms(lambda: osc_frames.osc_frames_fwd(phase, amps, loud, h_start), iters=20)
+        bwd_ms = cuda_ms(lambda: osc_frames.osc_frames_bwd(g, phase, amps, loud, h_start), iters=20)
+        plain_ms = cuda_ms(
+            lambda: osc_frames.render_from_phase_plain(phase, amps, loud, h_start), iters=3, warmup=1)
+        plain_bwd_ms = cuda_ms(
+            lambda: osc_frames.render_from_phase_bwd_plain(g, phase, amps, loud, h_start),
+            iters=3, warmup=1)
+        (fb_ms, fb_by), (bb_ms, bb_by) = frame_bounds_ms(b, t, hop, h)
+        log(f"[frames] {shape}: forward SNR {fwd_snr:.2f} dB, max |err| {fwd_err:.3e}, "
+            f"kernel {fwd_ms:.5f} ms, plain {plain_ms:.5f} ms, bound {fb_ms:.5f} ms ({fb_by})")
+        log(f"[frames] {shape}: backward SNR " + ", ".join(
+            f"{k} {v:.2f} dB (max |err| {grad_err[k]:.3e})" for k, v in grad_snr.items())
+            + f"; bit-equal on rerun; kernel {bwd_ms:.5f} ms, plain forward+backward "
+            f"{plain_bwd_ms:.5f} ms, bound {bb_ms:.5f} ms ({bb_by})")
+        if (b, t, hop, h, h_start) == FRAME_SHAPES[0]:
+            result["osc_frames_fwd"] = dict(
+                snr_db=fwd_snr, max_abs_err=fwd_err, ms=fwd_ms, plain_ms=plain_ms,
+                bound_ms=fb_ms, bound_by=fb_by)
+            result["osc_frames_bwd"] = dict(
+                snr_db=min(grad_snr.values()), max_abs_err=max(grad_err.values()),
+                grad_snr_db=grad_snr, grad_max_abs_err=grad_err, ms=bwd_ms,
+                plain_ms=plain_bwd_ms, bound_ms=bb_ms, bound_by=bb_by)
+        del phase, amps, loud, g
+        torch.cuda.empty_cache()
+    log("[frames] library_ms: null -- no single PyTorch call computes a harmonic "
+        "sine-bank render or its gradient; the nearest is the plain version timed above")
+    return result
+
+
+# --------------------------------------------------------------- phase 6
+
+
+def feature_batch(conf, n: int, seed: int):
+    """A seeded numpy training batch {f0, normalized_cents, loudness, audio}."""
+    rng = np.random.default_rng(seed)
+    t = conf.frames_per_example
+    return {
+        "f0": rng.uniform(100.0, 400.0, (n, t, 1)).astype(np.float32),
+        "normalized_cents": rng.uniform(0.0, 1.0, (n, t, 1)).astype(np.float32),
+        "loudness": rng.uniform(0.0, 1.0, (n, t, 1)).astype(np.float32),
+        "audio": (0.1 * rng.standard_normal((n, conf.example_length))).astype(np.float32),
+    }
+
+
+def step_gradients(params, batch, conf, key):
+    """The gradients ``make_train_step`` takes from this state: its loss
+    under the noise key it splits from ``key``, differentiated leaf by
+    leaf (a leaf the loss does not reach gets zeros, as in the step)."""
+    import torch
+
+    from ddsp_tpu_torch.ops.fir import split
+    from ddsp_tpu_torch.training import trainer
+
+    names, leaves = zip(*params.named_parameters())
+    loss, _ = trainer.loss_fn(params, batch, conf, split(key)[1])
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return {n: (torch.zeros_like(p) if g is None else g).detach().cpu().double()
+            for n, p, g in zip(names, leaves, grads)}
+
+
+def worst_leaf(g_gpu, g_cpu):
+    """(leaf, criterion, |diff| / |g_cpu| of that leaf) of the leaf whose
+    card gradient is furthest from the CPU's, by the GRAD_* criterion."""
+    import torch
+
+    total = float(torch.sqrt(sum((g * g).sum() for g in g_cpu.values())))
+    crit = {k: float((g_gpu[k] - g).norm() / (GRAD_RTOL * g.norm() + GRAD_FLOOR * total))
+            for k, g in g_cpu.items()}
+    leaf = max(crit, key=crit.get)
+    rel = float((g_gpu[leaf] - g_cpu[leaf]).norm() / g_cpu[leaf].norm().clamp_min(1e-300))
+    return leaf, crit[leaf], rel
+
+
+def phase_train_step(device):
+    """One full-width train step on the card and on the CPU from the same
+    weights, batch and key: gradients leaf by leaf, then the step.  The
+    gradients are also compared with the loss's log term off
+    (``mss_alpha`` 0), which shows how much of their spread is float32
+    rounding magnified by ``log2(S + eps)`` in low-power bins."""
+    import copy
+
+    import torch
+
+    from ddsp_tpu_torch.config import Config
+    from ddsp_tpu_torch.models.controller import decoder_init
+    from ddsp_tpu_torch.ops.fir import PRNGKey
+    from ddsp_tpu_torch.training import trainer
+
+    conf = Config(batch_size=2)
+    conf_linear = Config(batch_size=2, mss_alpha=0.0)
+    batch = feature_batch(conf, conf.batch_size, SEED + 3)
+    decoder = decoder_init(conf, seed=SEED)
+    step = trainer.make_train_step(conf)
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        params = copy.deepcopy(decoder).to(dev)
+        on_dev = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        grads = step_gradients(params, on_dev, conf, PRNGKey(SEED, dev))
+        linear = step_gradients(params, on_dev, conf_linear, PRNGKey(SEED, dev))
+        state = trainer.TrainState(0, params, trainer.make_optimizer(conf).init(
+            list(params.parameters())), PRNGKey(SEED, dev))
+        t0 = time.perf_counter()
+        state, metrics = step(state, on_dev)
+        loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        log(f"[train-step] {dev}: loss {loss:.6f}, grad_norm {grad_norm:.6f}, "
+            f"{time.perf_counter() - t0:.2f} s")
+        out[dev.type] = (loss, grad_norm, grads, linear, {
+            k: v.detach().cpu().double() for k, v in state.params.state_dict().items()})
+    (l_gpu, n_gpu, g_gpu, lin_gpu, p_gpu) = out["cuda"]
+    (l_cpu, n_cpu, g_cpu, lin_cpu, p_cpu) = out["cpu"]
+    loss_tol = max(LOSS_ATOL, LOSS_RTOL * abs(l_cpu))
+    require(np.isfinite(l_gpu) and abs(l_gpu - l_cpu) < loss_tol,
+            f"train-step loss card {l_gpu} vs CPU {l_cpu} (tolerance {loss_tol:.3e})")
+    norm_err = abs(n_gpu - n_cpu) / n_cpu
+    require(np.isfinite(n_gpu) and norm_err <= GRAD_RTOL,
+            f"train-step grad_norm card {n_gpu} vs CPU {n_cpu}: {norm_err:.3e} relative > {GRAD_RTOL}")
+    leaf, worst_grad, rel = worst_leaf(g_gpu, g_cpu)
+    log(f"[train-step] card vs CPU gradients, {len(g_cpu)} leaves: grad_norm "
+        f"{norm_err:.3e} relative; worst leaf {leaf}: |diff| {rel:.3e} of its norm, "
+        f"criterion {worst_grad:.4f} (< 1 passes)")
+    lin_leaf, lin_crit, lin_rel = worst_leaf(lin_gpu, lin_cpu)
+    log(f"[train-step] same with the log term off (mss_alpha 0), for information: worst "
+        f"leaf {lin_leaf}: |diff| {lin_rel:.3e} of its norm, criterion {lin_crit:.4f}")
+    require(worst_grad < 1.0, f"train-step gradient of {leaf} differs: criterion {worst_grad:.4f} >= 1")
+    worst = max(float(((p_gpu[k] - p_cpu[k]).abs() / (PARAM_ATOL + PARAM_RTOL * p_cpu[k].abs())).max())
+                for k in p_cpu)
+    log(f"[train-step] card vs CPU: |loss diff| {abs(l_gpu - l_cpu):.3e} (< {loss_tol:.3e}); "
+        f"worst param |diff| / (atol + rtol |cpu|) = {worst:.4f} (< 1 passes; one Adam "
+        f"step cannot fail it)")
+    require(worst < 1.0, f"train-step params differ: criterion {worst:.4f} >= 1")
+
+
+# --------------------------------------------------------------- phase 7
+
+
+def write_tones(data_dir: str, sample_rate: int, seed: int, n: int = 3, seconds: float = 10.0):
+    """``n`` harmonic tones with gliding pitch as WAV files."""
+    from ddsp_tpu_torch.data.audio_io import write_wav
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sample_rate)) / sample_rate
+    os.makedirs(data_dir, exist_ok=True)
+    for i in range(n):
+        f = 110.0 * 2.0 ** rng.uniform(0.0, 2.0) * 2.0 ** (t / seconds)  # one octave up
+        phase = 2 * np.pi * np.cumsum(f) / sample_rate
+        audio = sum((0.3 / k) * np.sin(k * phase) for k in range(1, 6))
+        audio += 0.005 * rng.standard_normal(t.size)
+        write_wav(os.path.join(data_dir, f"tone{i}.wav"), audio.astype(np.float32), sample_rate)
+
+
+def phase_training(device):
+    """The training CLI at full width; returns the launch counts of its run."""
+    import contextlib
+    import io
+
+    import torch
+
+    from ddsp_tpu_torch.config import Config
+    from ddsp_tpu_torch.ops.cuda import osc_frames
+    from ddsp_tpu_torch.ops.fir import PRNGKey
+    from ddsp_tpu_torch.training import train, trainer
+
+    conf = Config()
+    work = tempfile.mkdtemp()
+    data_dir, ckpt_dir = os.path.join(work, "data"), os.path.join(work, "ckpt")
+    write_tones(data_dir, conf.sample_rate, SEED + 11)
+    argv = [f"--data_dir={data_dir}", f"--checkpoint_dir={ckpt_dir}",
+            f"--num_steps={TRAIN_STEPS}", f"--device_steps={TRAIN_WINDOW}",
+            f"--checkpoint_every={TRAIN_WINDOW}", f"--batch_size={conf.batch_size}",
+            f"--device={device.type}"]
+    stdout = io.StringIO()
+    osc_frames.FWD_LAUNCHES = osc_frames.BWD_LAUNCHES = 0  # the main path from here
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        state = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = osc_frames.FWD_LAUNCHES, osc_frames.BWD_LAUNCHES
+    for line in stdout.getvalue().splitlines():
+        log(f"[train] | {line}")
+    require(f" on {device.type}" in stdout.getvalue(), "features were not extracted on the card")
+    rows = [json.loads(line) for line in open(os.path.join(ckpt_dir, "metrics.jsonl"))]
+    require([r["step"] for r in rows] == list(range(TRAIN_WINDOW, TRAIN_STEPS + 1, TRAIN_WINDOW)),
+            f"logged steps {[r['step'] for r in rows]}")
+    require(all(np.isfinite(r["loss"]) and np.isfinite(r["loss_mean"]) for r in rows),
+            "a logged loss is not finite")
+    dumps = len([f for f in os.listdir(os.path.join(ckpt_dir, "audio")) if f.endswith(".wav")])
+    n_dump = dumps // 2  # each dump forward writes two examples
+    require(bwd == TRAIN_STEPS, f"backward kernel launched {bwd} times in {TRAIN_STEPS} steps")
+    require(fwd == TRAIN_STEPS + n_dump,
+            f"forward kernel launched {fwd} times for {TRAIN_STEPS} steps + {n_dump} dump(s)")
+    latest = trainer.latest_checkpoint(ckpt_dir)
+    require(latest is not None and latest.endswith(f"step_{TRAIN_STEPS:08d}"),
+            f"latest checkpoint {latest}")
+    restored = trainer.restore_checkpoint(latest, trainer.init_state(PRNGKey(99), conf, device))
+    require(restored.step == TRAIN_STEPS, f"restored step {restored.step}")
+    for (k, a), (_, b) in zip(restored.params.state_dict().items(),
+                              state.params.state_dict().items()):
+        require(torch.equal(a, b), f"restored parameter {k} differs")
+    window_ms = [1e3 * (b["time"] - a["time"]) / TRAIN_WINDOW for a, b in zip(rows, rows[1:])]
+    ms = statistics.median(window_ms)
+    log(f"[train] {TRAIN_STEPS} steps at batch {conf.batch_size}, full width: "
+        f"{wall:.1f} s in all (features, {len(rows)} windows, checkpoints, {n_dump} dump); "
+        f"losses {[round(r['loss_mean'], 4) for r in rows]}; "
+        f"forward kernel {fwd} launches, backward kernel {bwd}")
+    log(f"[train] steady state: median {ms:.3f} ms per train step over windows 2-{len(rows)} "
+        f"({1e3 / ms:.2f} steps/s); checkpoint {os.path.basename(latest)} restores equal")
+    return {"osc_frames_fwd": fwd, "osc_frames_bwd": bwd}, ms
+
 
 def main() -> int:
     import torch
@@ -331,30 +655,32 @@ def main() -> int:
     device = torch.device("cuda", 0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
 
+    build_kernels()
     kernel = phase_kernel(device)
     launches, params, crepe, conf = phase_serving(device)
     phase_socket(device, params, crepe, conf)
+    frames = phase_frames(device)
+    phase_train_step(device)
+    train_launches, _ = phase_training(device)
 
-    print(json.dumps({"kernels": [{
-        "name": "osc_hop_slots",
-        "route": "cuda",
-        "source": "ddsp_tpu_torch/csrc/osc_hop_slots.cu",
-        "replaces": "ddsp_tpu/ops/pallas/oscillator.py:446",
-        "tpu_function": "_kernel_banked",
-        "launches": launches,
-        "max_abs_err": kernel["max_abs_err"],
-        "snr_db": kernel["snr_db"],
-        "ms": kernel["ms"],
-        "kernel_ms": kernel["ms"],
-        "plain_ms": kernel["plain_ms"],
-        "bound_ms": kernel["bound_ms"],
-        "bound_by": kernel["bound_by"],
-        "library_ms": None,
-    }]}), flush=True)
+    kernels = [dict(
+        name="osc_hop_slots", route="cuda", source="ddsp_tpu_torch/csrc/osc_hop_slots.cu",
+        replaces="ddsp_tpu/ops/pallas/oscillator.py:446", tpu_function="_kernel_banked",
+        launches=launches, **kernel)]
+    for name, line, tpu in (("osc_frames_fwd", 152, "_kernel_banked2"),
+                            ("osc_frames_bwd", 777, "_kernel_banked2_bwd")):
+        kernels.append(dict(
+            name=name, route="cuda", source="ddsp_tpu_torch/csrc/osc_frames.cu",
+            replaces=f"ddsp_tpu/ops/pallas/oscillator.py:{line}", tpu_function=tpu,
+            launches=train_launches[name], **frames[name]))
+    for k in kernels:
+        k.update(kernel_ms=k["ms"], library_ms=None)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    # one card driven, whatever else the host shows
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
+        "count": 1,
     }}), flush=True)
     return 0
 

@@ -8,14 +8,16 @@ the port never loads the JAX package.
 Some fields only choose a TPU code path in the JAX package.  In this port:
 
 * ``osc_impl`` is read by nothing: the oscillator dispatches by device
-  (a CUDA tensor launches the hand-written kernel, a CPU tensor takes the
-  plain PyTorch version);
+  (a CUDA tensor launches the hand-written kernels, a CPU tensor takes
+  their plain PyTorch versions);
 * ``crepe_layout`` is read by nothing: the port runs the torch-shaped
   (N, C, H) convolution stack, the same math as both JAX layouts;
-* ``crepe_compute_dtype``, ``compute_dtype``, ``loss_matmul_dtype`` and
-  ``reverb_grad_matmul_dtype`` are read by nothing yet: the serving path
-  runs in full float32 (TF32 off), and the training slice that would read
-  the loss and gradient dtypes is not ported.
+* ``crepe_compute_dtype`` and ``compute_dtype`` are read by nothing: the
+  port's CREPE and controller run in full float32 (TF32 off);
+* ``loss_matmul_dtype`` and ``reverb_grad_matmul_dtype`` are accepted and
+  change nothing: the port runs every loss STFT and every reverb FFT,
+  forward and backward, in float32 on ``torch.fft``, since cuFFT has no
+  bf16 transform.
 """
 
 from __future__ import annotations
@@ -86,23 +88,26 @@ class Config:
     checkpoint_every: int = 1000
     # Retention: keep the newest N finalized checkpoints (0 = keep all).
     checkpoint_keep: int = 3
-    # Async saves (Orbax background commit) keep the train loop from
+    # Async saves (a background commit thread) keep the train loop from
     # blocking on checkpoint writes (SURVEY.md section 5).
     checkpoint_async: bool = True
 
     # --- numerics / hardware ------------------------------------------------
     # dtype of the JAX package's neural-net matmuls.  Not read by the
-    # port's serving path, which runs the controller in float32.
+    # port, which runs the controller in float32.
     compute_dtype: str = "float32"
-    # dtype of the JAX package's MSS-loss STFT matmul inputs.  Not read
-    # yet: the loss belongs to the training slice, which is not ported.
+    # dtype of the JAX package's MSS-loss STFT matmul inputs.  Changes
+    # nothing in the port: its loss STFTs are float32 torch.stft (cuFFT has
+    # no bf16 transform).
     loss_matmul_dtype: str = "bfloat16"
     # dtype of the JAX package's reverb-convolution backward DFT matmuls.
-    # Not read yet: gradients belong to the training slice.
+    # Changes nothing in the port: the reverb's forward and backward are
+    # float32 torch.fft transforms.
     reverb_grad_matmul_dtype: str = "bfloat16"
     # JAX oscillator path ('auto' | 'xla' | 'pallas').  Not read by the
-    # port: a CUDA tensor launches the CUDA kernel, a CPU tensor takes the
-    # plain version (ops/cuda/oscillator.py).
+    # port: the device decides -- a CUDA tensor launches the CUDA kernels
+    # (ops/cuda/oscillator.py, ops/cuda/osc_frames.py), a CPU tensor takes
+    # their plain versions.
     osc_impl: str = "auto"
 
     # --- parallelism --------------------------------------------------------

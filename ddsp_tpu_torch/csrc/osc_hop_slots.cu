@@ -20,9 +20,9 @@
 // warp-wide broadcasts) and each thread owns one output sample.
 //
 // Accuracy: every harmonic's phase is formed as in harmonic_sines
-// (ops/oscillator.py): phase = hi + lo with hi on the 1/4096 grid, so
-// h * hi is exact in float32 for h <= 2048, and the sine is the accurate
-// sinf.  Build without --use_fast_math: its __sinf loses the accuracy the
+// (ops/oscillator.py, osc_phase.cuh): phase = hi + lo with hi on the 1/4096
+// grid, so h * hi is exact in float32 for h <= 2048, and the sine is the
+// accurate sinf.  Build without --use_fast_math: its __sinf loses the accuracy the
 // split buys.
 //
 // Left for later: seeding exactly every 8 harmonics and rotating in
@@ -30,12 +30,11 @@
 
 #include <cuda_runtime.h>
 
+#include "osc_phase.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
-constexpr float kQuant = 4096.0f;
-constexpr float kInvQuant = 1.0f / 4096.0f;
-constexpr float kTwoPi = 6.283185307179586f;
 
 __global__ void __launch_bounds__(kThreads)
 osc_hop_slots_kernel(const float* __restrict__ phase,   // (N, hop)
@@ -60,9 +59,8 @@ osc_hop_slots_kernel(const float* __restrict__ phase,   // (N, hop)
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= hop) return;
 
-  const float x = phase[slot * hop + j];
-  const float hi = floorf(x * kQuant) * kInvQuant;
-  const float lo = x - hi;
+  float hi, lo;
+  osc::split_phase(phase[slot * hop + j], &hi, &lo);
   const float* a_l = amps;
   const float* a_m = amps + n_harm;
   const float* a_r = amps + 2 * n_harm;
@@ -70,11 +68,7 @@ osc_hop_slots_kernel(const float* __restrict__ phase,   // (N, hop)
   float s_l = 0.0f, s_m = 0.0f, s_r = 0.0f;
   for (int i = 0; i < n_harm; ++i) {
     const float h = static_cast<float>(i + 1);
-    float coarse = hi * h;  // exact: hi on the 1/4096 grid, h <= 2048
-    coarse -= floorf(coarse);
-    float frac = coarse + lo * h;
-    frac -= floorf(frac);
-    const float s = sinf(kTwoPi * frac);
+    const float s = sinf(osc::kTwoPi * osc::harmonic_frac(hi, lo, h));
     s_l = fmaf(a_l[i], s, s_l);
     s_m = fmaf(a_m[i], s, s_m);
     s_r = fmaf(a_r[i], s, s_r);

@@ -4,6 +4,10 @@ Counterpart of ``ddsp_tpu/models/controller.py`` (reference
 model/autoencoder/decoder.py:41-147): two input MLPs -> GRU -> MLP -> three
 dense heads through ``modified_sigmoid``.  The streaming path returns the
 advanced GRU state (the reference returns the stale one).
+``decoder_apply`` wires the controls into oscillator + noise + reverb,
+each stage inside a ``torch.profiler.record_function`` range (controller,
+oscillator_bank, filtered_noise, reverb), the counterparts of the JAX
+package's ``named_scope``s.
 """
 
 from __future__ import annotations
@@ -12,10 +16,16 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ddsp_tpu_torch.config import Config
 from ddsp_tpu_torch.models.nn import GRU, MLP
-from ddsp_tpu_torch.models.synths import Reverb
+from ddsp_tpu_torch.models.synths import (
+    Reverb,
+    noise_apply,
+    oscillator_apply,
+    reverb_apply,
+)
 
 
 def modified_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -97,3 +107,46 @@ def controller_apply(
       (controls {f0, c, a, H}, advanced hidden state).
     """
     return controller(batch, hidden)
+
+
+def decoder_apply(
+    params: Decoder,
+    batch: Dict[str, torch.Tensor],
+    conf: Config,
+    noise_key: torch.Tensor,
+    frame_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Full offline decode: controls -> harmonics + noise -> reverb.
+
+    The reference Decoder.forward (decoder.py:127-135).  ``batch`` holds
+    {'normalized_cents', 'loudness', 'f0'}, each (B, T, 1); ``noise_key``
+    is a (2,) threefry key.  Returns (B, T*hop) audio.
+    """
+    with record_function("controller"):
+        controls, _ = controller_apply(params.controller, batch)
+    with record_function("oscillator_bank"):
+        harm, _ = oscillator_apply(controls, conf, frame_chunk=frame_chunk)
+    with record_function("filtered_noise"):
+        noise = noise_apply(controls, conf, noise_key)
+    with record_function("reverb"):
+        return reverb_apply(params.reverb, harm + noise, conf)
+
+
+def decoder_synth_only(
+    params: Decoder,
+    batch: Dict[str, torch.Tensor],
+    conf: Config,
+    noise_key: torch.Tensor,
+) -> Dict[str, torch.Tensor]:
+    """Decode returning the pre- and post-reverb signals and the controls."""
+    controls, _ = controller_apply(params.controller, batch)
+    harm, _ = oscillator_apply(controls, conf)
+    noise = noise_apply(controls, conf, noise_key)
+    dry = harm + noise
+    return {
+        "audio_harmonic": harm,
+        "audio_noise": noise,
+        "audio_synth": dry,
+        "audio_reverb": reverb_apply(params.reverb, dry, conf),
+        "controls": controls,
+    }

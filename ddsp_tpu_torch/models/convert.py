@@ -2,7 +2,9 @@
 
 * ``decoder_from_jax`` / ``crepe_from_jax`` take the JAX package's
   parameter trees as numpy arrays (``jax.tree.map(np.asarray, params)``,
-  done by the caller so this package never imports jax);
+  done by the caller so this package never imports jax), and
+  ``decoder_to_jax`` gives a decoder back in that layout, so a test can
+  compare parameters after a training step;
 * ``decoder_from_state_dict`` / ``load_lightning_decoder`` read the
   reference Decoder layout, which ``ddsp_tpu/models/torch_export.py``
   writes and the reference's Lightning checkpoints hold.
@@ -78,6 +80,48 @@ def decoder_from_jax(np_tree: Dict, conf: Config) -> Decoder:
     for leaf in ("noise", "decay", "wet"):
         sd[f"reverb.{leaf}"] = _t(np_tree["reverb"][leaf])
     return decoder_from_state_dict(sd, conf)
+
+
+def decoder_to_jax(decoder: Decoder) -> Dict:
+    """:class:`Decoder` -> ddsp_tpu decoder tree ``{'controller': ...,
+    'reverb': ...}`` with numpy leaves: the inverse of
+    :func:`decoder_from_jax`."""
+    sd = {k: v.detach().cpu().numpy() for k, v in decoder.state_dict().items()}
+
+    def mlp(prefix: str) -> Dict:
+        layers, i = [], 1
+        while f"{prefix}.mlp_layer{i}.0.weight" in sd:
+            layers.append({
+                "dense": {"weight": sd[f"{prefix}.mlp_layer{i}.0.weight"],
+                          "bias": sd[f"{prefix}.mlp_layer{i}.0.bias"]},
+                "norm": {"weight": sd[f"{prefix}.mlp_layer{i}.1.weight"],
+                         "bias": sd[f"{prefix}.mlp_layer{i}.1.bias"]},
+            })
+            i += 1
+        return {"layers": layers}
+
+    gru, k = [], 0
+    while f"controller.gru.weight_ih_l{k}" in sd:
+        gru.append({
+            "w_ih": sd[f"controller.gru.weight_ih_l{k}"],
+            "w_hh": sd[f"controller.gru.weight_hh_l{k}"],
+            "b_ih": sd[f"controller.gru.bias_ih_l{k}"],
+            "b_hh": sd[f"controller.gru.bias_hh_l{k}"],
+        })
+        k += 1
+    ctrl = {
+        "mlp_f0": mlp("controller.mlp_f0"),
+        "mlp_loudness": mlp("controller.mlp_loudness"),
+        "gru": {"layers": gru},
+        "mlp_gru": mlp("controller.mlp_gru"),
+    }
+    for head in ("dense_harmonic", "dense_loudness", "dense_filter"):
+        ctrl[head] = {"weight": sd[f"controller.{head}.weight"],
+                      "bias": sd[f"controller.{head}.bias"]}
+    return {
+        "controller": ctrl,
+        "reverb": {leaf: sd[f"reverb.{leaf}"] for leaf in ("noise", "decay", "wet")},
+    }
 
 
 def crepe_from_jax(np_tree: Dict) -> Crepe:

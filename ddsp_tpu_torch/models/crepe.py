@@ -117,3 +117,22 @@ def pitch_argmax(probabilities: torch.Tensor):
     freq = freq_map(cents_map(fbins))
     harmonicity = probabilities.gather(-1, bins)
     return freq, harmonicity, fbins / 359.0
+
+
+def _not_ported(name: str):
+    raise NotImplementedError(
+        f"{name} is not ported yet: the differentiable pitch decodes come "
+        "with the finetune slice (ROADMAP.md, section 1, item 1)"
+    )
+
+
+def pitch_weighted(probabilities: torch.Tensor):
+    """Local weighted-average pitch decode (``ddsp_tpu``'s
+    ``pitch_weighted``): not ported yet, raises."""
+    _not_ported("pitch_weighted")
+
+
+def pitch_centered_ref(probabilities: torch.Tensor, center=None):
+    """The reference's bug-compatible ``pitch_centered`` decode
+    (``ddsp_tpu``'s ``pitch_centered_ref``): not ported yet, raises."""
+    _not_ported("pitch_centered_ref")

@@ -1,10 +1,16 @@
-"""Learned reverb and its streaming frequency-delay line.
+"""Synthesizer modules: oscillator bank, filtered noise, learned reverb.
 
-Counterpart of the reverb part of ``ddsp_tpu/models/synths.py``
-(reference model/ddsp/reverb.py).  The streaming reverb splits the IR into
-P block-sized partitions whose 2*block rDFT spectra multiply the stored
-spectra of the last P dry windows (overlap-save); the P-deep line carries
-the IR's whole memory, so block output equals offline convolution.
+Counterpart of ``ddsp_tpu/models/synths.py`` (reference
+model/ddsp/harmonic_oscillator.py, filtered_noise.py, reverb.py):
+
+* ``oscillator_apply``, ``noise_apply`` and ``reverb_apply`` are the
+  offline (training) render of a controls dict; the oscillator dispatches
+  by device to the CUDA kernel pair or its plain version
+  (ops/oscillator.py);
+* the streaming reverb splits the IR into P block-sized partitions whose
+  2*block rDFT spectra multiply the stored spectra of the last P dry
+  windows (overlap-save); the P-deep line carries the IR's whole memory,
+  so block output equals offline convolution.
 """
 
 from __future__ import annotations
@@ -17,6 +23,34 @@ from torch import nn
 
 from ddsp_tpu_torch.config import Config
 from ddsp_tpu_torch.ops.fft import irfft_pair, rfft_pair
+from ddsp_tpu_torch.ops.fir import fft_convolve, filtered_noise
+from ddsp_tpu_torch.ops.oscillator import oscillator_bank
+
+
+def oscillator_apply(
+    controls: dict,
+    conf: Config,
+    initial_phase: Optional[torch.Tensor] = None,
+    frame_chunk: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Offline harmonic render from a controls dict {f0, c, a}.
+
+    Returns (audio (B, T*hop), final fundamental phase (B,)).  CUDA tensors
+    run the kernel pair (``conf.osc_impl`` is not read: the device
+    decides), CPU tensors the plain version.
+    """
+    return oscillator_bank(
+        controls["f0"], controls["c"], controls["a"],
+        sample_rate=conf.sample_rate,
+        hop=conf.hop_length,
+        initial_phase=initial_phase,
+        frame_chunk=frame_chunk,
+    )
+
+
+def noise_apply(controls: dict, conf: Config, key: torch.Tensor) -> torch.Tensor:
+    """Filtered-noise branch from a controls dict {H}: (B, T*hop) audio."""
+    return filtered_noise(controls["H"], key, conf.hop_length)
 
 
 class Reverb(nn.Module):
@@ -46,6 +80,16 @@ def reverb_impulse(reverb: Reverb, conf: Config) -> torch.Tensor:
     envelope = torch.exp(-F.softplus(-reverb.decay) * t * 500.0)
     impulse = reverb.noise * envelope * torch.sigmoid(reverb.wet)
     return torch.cat([impulse.new_ones(1), impulse[1:]])
+
+
+def reverb_apply(reverb: Reverb, x: torch.Tensor, conf: Config) -> torch.Tensor:
+    """Convolve (B, L) audio with the learned IR (reference reverb.py:31-38).
+
+    Forward and backward are float32 ``torch.fft`` transforms, whatever
+    ``conf.reverb_grad_matmul_dtype`` says (``ops/fir.fft_convolve``).
+    """
+    impulse = reverb_impulse(reverb, conf)
+    return fft_convolve(x, impulse[None, :], kernel_len=impulse.shape[-1])
 
 
 class ReverbLiveState(NamedTuple):

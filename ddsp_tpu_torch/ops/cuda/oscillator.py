@@ -11,40 +11,27 @@ phase stage, without the TPU's padding: N serving slots, each with its own
   fallback from the card to the plain version.
 * ``LAUNCHES`` counts kernel launches (and nothing else), so a run can
   show that its main path went through the kernel.
-* ``build()`` compiles the source with ``nvcc`` for ``sm_90a`` into
-  ``ddsp_tpu_torch/_build/`` on first use; the library has a plain C entry
-  point and is loaded with ``ctypes``.
+* ``ops/cuda/build.py`` compiles the source with ``nvcc`` for ``sm_90a``
+  into ``ddsp_tpu_torch/_build/`` on first use; the library has a plain C
+  entry point and is loaded with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
+from ddsp_tpu_torch.ops.cuda import build as _build
 from ddsp_tpu_torch.ops.oscillator import harmonic_sines
 
 LAUNCHES = 0
 
-PACKAGE_DIR = Path(__file__).resolve().parents[2]
-SOURCE = PACKAGE_DIR / "csrc" / "osc_hop_slots.cu"
-BUILD_DIR = PACKAGE_DIR / "_build"
-# No --use_fast_math: the split-precision phase needs the accurate sinf.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-)
 MAX_HARMONICS = 2048  # h * (1/4096-grid phase) stays exact in float32
 MAX_SLOTS = 65535  # the kernel's grid.y
-
-_lib = None
-_lib_lock = threading.Lock()
+_SIGNATURES = {
+    "osc_hop_slots": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+}
 
 
 def render_hop_slots_plain(
@@ -55,7 +42,7 @@ def render_hop_slots_plain(
     loud: torch.Tensor,  # (N, 3) loudness of the three frames
     w: torch.Tensor,  # (hop, 3) interpolation weights
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: ``_render_from_phase`` at T=1.
+    """Plain PyTorch version of the kernel: ``render_from_phase_plain`` at T=1.
 
     Materialises the (N, hop, H) sine tensor.  Returns (N, hop).
     """
@@ -67,56 +54,8 @@ def render_hop_slots_plain(
     return loud_up * harm
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME)")
-    nvcc = Path(CUDA_HOME) / "bin" / "nvcc"
-    if not nvcc.exists():
-        raise RuntimeError(f"nvcc not found at {nvcc}")
-    return str(nvcc)
-
-
-def build() -> Path:
-    """Compile the kernel (once per source and flags) and return the .so.
-
-    The library name carries a hash of the source and flags, so an edited
-    source is rebuilt; the compiler's report (registers, spills) is kept
-    beside it in a ``.log`` file.
-    """
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib = BUILD_DIR / f"libosc_hop_slots_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True,
-        text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent process never loads a torn file
-    return lib
-
-
 def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.osc_hop_slots
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-                ctypes.c_void_p
-            ]
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+    return _build.library("osc_hop_slots", _SIGNATURES)
 
 
 def _check(phase, amps_l, amps_m, amps_r, loud, w) -> None:

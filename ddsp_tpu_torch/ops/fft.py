@@ -3,7 +3,8 @@
 The JAX package evaluates every transform as DFT matmuls or its own
 Cooley-Tukey layer because its TPU backend has no FFT.  That layer was
 never a Pallas kernel; on the GPU ``torch.fft`` (cuFFT) computes the same
-transforms, so only the (re, im) pair interface is kept here.
+transforms, so only the (re, im) pair interface and the truncated causal
+convolution are kept here.
 """
 
 from __future__ import annotations
@@ -54,3 +55,20 @@ def irfft_pair(
     if out_len is not None and out_len < n:
         out = out[..., :out_len]
     return out
+
+
+def rfft_convolve_same(
+    signal: torch.Tensor, kernel: torch.Tensor, kernel_len: int
+) -> torch.Tensor:
+    """Causal linear convolution truncated to the signal length.
+
+    ``out[t] = sum_{k<=t, k<kernel_len} kernel[k] * signal[t-k]``: the
+    reference's pad/crop ``fft_convolve`` (filtered_noise.py:25-32),
+    computed as a circular convolution at ``next_fft_size(L + kernel_len
+    - 1)`` points (no wraparound) on ``torch.fft``.  ``signal`` (..., L)
+    and ``kernel`` (..., >= kernel_len) broadcast over leading axes.
+    """
+    length = signal.shape[-1]
+    n = next_fft_size(length + kernel_len - 1)
+    spec = torch.fft.rfft(signal, n=n) * torch.fft.rfft(kernel[..., :kernel_len], n=n)
+    return torch.fft.irfft(spec, n=n)[..., :length]

@@ -1,16 +1,20 @@
-"""Counter-based noise and the spectral FIR filter of the noise branch.
+"""Counter-based noise, FIR design and FFT convolution.
 
-Counterpart of ``ddsp_tpu/ops/fir.py`` for the serving path:
+Counterpart of ``ddsp_tpu/ops/fir.py``:
 
-* ``threefry_2x32``, ``PRNGKey`` and ``fold_in`` reproduce jax's default
-  (threefry) keys bit for bit, so a noise stream keyed here equals the
-  JAX package's for the same seed;
+* ``threefry_2x32``, ``PRNGKey``, ``fold_in`` and ``split`` reproduce
+  jax's default (threefry) keys bit for bit, so a noise stream keyed here
+  equals the JAX package's for the same seed, and a trainer that splits
+  its key every step draws the JAX trainer's noise;
 * ``frame_noise`` is a pure function of (key, row, absolute sample), which
   is what makes block-by-block streaming equal to an offline render;
 * ``convolve_designed_fir`` folds the FIR design of the reference
   (filtered_noise.py:7-22: irfft of zero-phase magnitudes, roll, Hann
   window, pad) and the convolution's forward transform into one
-  precomputed (n_filters, n_bins) matrix pair.
+  precomputed (n_filters, n_bins) matrix pair;
+* ``amp_to_impulse_response`` and ``fft_convolve`` are the reference's
+  FIR design and causal convolution (filtered_noise.py:7-32), the latter
+  on ``torch.fft``.
 
 Torch has no 32-bit unsigned shifts on every device, so the 32-bit cipher
 arithmetic runs in int64 with explicit masking: every value stays in
@@ -24,7 +28,12 @@ import functools
 import numpy as np
 import torch
 
-from ddsp_tpu_torch.ops.fft import irfft_pair, next_fft_size, rfft_pair
+from ddsp_tpu_torch.ops.fft import (
+    irfft_pair,
+    next_fft_size,
+    rfft_convolve_same,
+    rfft_pair,
+)
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -85,6 +94,17 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 
 
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """jax 0.9.0's ``random.split`` of a raw threefry key: (num, 2) keys.
+
+    With ``jax_threefry_partitionable`` (the default since jax 0.5) key
+    ``i`` is the threefry pair of the 64-bit counter ``i``, i.e. the words
+    (0, i): the same words as ``fold_in(key, i)``."""
+    i = torch.arange(num, dtype=torch.int64, device=key.device)
+    y0, y1 = _threefry_pair(key[0], key[1], torch.zeros_like(i), i)
+    return torch.stack([y0, y1], dim=-1)
+
+
 def noise_from_counts(row_keys: torch.Tensor, counts: torch.Tensor,
                       dtype=torch.float32) -> torch.Tensor:
     """Uniform [-1, 1) noise at absolute sample ``counts`` under per-row
@@ -122,6 +142,49 @@ def frame_noise(
     return u.reshape(batch, n_frames, block_size)
 
 
+def hann_window(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Periodic Hann window (``torch.hann_window(n)`` semantics), formed in
+    float64 and cast, as the JAX package forms it."""
+    i = np.arange(n)
+    return torch.as_tensor(
+        0.5 - 0.5 * np.cos(2.0 * np.pi * i / n), dtype=dtype, device=device
+    )
+
+
+def amp_to_impulse_response(amp: torch.Tensor, target_size: int) -> torch.Tensor:
+    """Zero-phase magnitude response -> windowed causal FIR of target_size.
+
+    ``amp``: (..., n_filters) magnitudes over [0, Nyquist]; irfft ->
+    rotate to causal -> Hann window -> zero-pad -> rotate back
+    (reference filtered_noise.py:7-22).  Returns (..., target_size).
+    """
+    ir = torch.fft.irfft(amp.to(torch.complex64))
+    filter_size = ir.shape[-1]  # 2 * (n_filters - 1)
+    ir = torch.roll(ir, filter_size // 2, dims=-1)
+    ir = ir * hann_window(filter_size, ir.dtype, ir.device)
+    ir = torch.nn.functional.pad(ir, (0, int(target_size) - int(filter_size)))
+    return torch.roll(ir, -(filter_size // 2), dims=-1)
+
+
+def fft_convolve(
+    signal: torch.Tensor,
+    kernel: torch.Tensor,
+    kernel_len: int = None,
+    grad_matmul_dtype: str = None,
+) -> torch.Tensor:
+    """Causal linear convolution via FFT, reference pad/crop alignment:
+    ``out[n] = sum_{k<=n} kernel[k] * signal[n-k]``, (..., L).
+
+    ``kernel_len`` declares the kernel's true support (the FFT size
+    shrinks to it).  ``grad_matmul_dtype`` is accepted for the JAX
+    package's signature and changes nothing: there it runs the backward's
+    DFT matmuls in bf16 on the TPU; here forward and backward are float32
+    ``torch.fft`` transforms, since cuFFT has no bf16 transform.
+    """
+    del grad_matmul_dtype
+    return rfft_convolve_same(signal, kernel, kernel_len or kernel.shape[-1])
+
+
 @functools.lru_cache(maxsize=None)
 def _design_spectrum_mats(n_filters: int, block_size: int, n_fft: int):
     """(n_filters, n_fft//2+1) cos/sin pair: magnitudes -> kernel spectrum.
@@ -152,6 +215,14 @@ def _design_spectrum_mats(n_filters: int, block_size: int, n_fft: int):
     return wre.astype(np.float32), wri.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _design_spectrum_mats_on(n_filters: int, block_size: int, n_fft: int,
+                             device: torch.device):
+    """:func:`_design_spectrum_mats` as tensors on ``device``, made once."""
+    return tuple(torch.as_tensor(m, device=device)
+                 for m in _design_spectrum_mats(n_filters, block_size, n_fft))
+
+
 def convolve_designed_fir(
     filter_mags: torch.Tensor, frames: torch.Tensor
 ) -> torch.Tensor:
@@ -171,10 +242,7 @@ def convolve_designed_fir(
     b, t, nf = filter_mags.shape
     block_size = frames.shape[-1]
     n = next_fft_size(2 * block_size - 1)
-    wre, wri = (
-        torch.as_tensor(m, device=filter_mags.device)
-        for m in _design_spectrum_mats(nf, block_size, n)
-    )
+    wre, wri = _design_spectrum_mats_on(nf, block_size, n, filter_mags.device)
     kr = filter_mags @ wre
     ki = filter_mags @ wri
     sr, si = rfft_pair(frames, n)

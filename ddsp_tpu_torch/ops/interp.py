@@ -6,7 +6,8 @@ scale ``hop`` the output sample ``t*hop + j`` mixes frames ``t-1, t, t+1``
 with fixed weights that depend only on ``j``; the oscillator uses those
 weights directly and never builds audio-rate control tensors.
 
-Counterpart of ``ddsp_tpu/ops/interp.py`` (numpy, cached).
+Counterpart of ``ddsp_tpu/ops/interp.py`` (weights in numpy, cached;
+``edge_pad_frames`` on tensors).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,3 +45,22 @@ def hop_weight_cumsum(hop: int) -> np.ndarray:
     (the closed-form oscillator phase accumulation).
     """
     return np.cumsum(hop_weights(hop), axis=0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def hop_weights_on(hop: int, device: torch.device) -> torch.Tensor:
+    """:func:`hop_weights` as a tensor on ``device``, made once: a fresh
+    host-to-device copy each call would stall the host on the device."""
+    return torch.as_tensor(hop_weights(hop), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def hop_weight_cumsum_on(hop: int, device: torch.device) -> torch.Tensor:
+    """:func:`hop_weight_cumsum` as a tensor on ``device``, made once."""
+    return torch.as_tensor(hop_weight_cumsum(hop), device=device)
+
+
+def edge_pad_frames(x: torch.Tensor) -> torch.Tensor:
+    """Replicate one frame of context on each side of the time axis
+    (axis 1): the interpolation edge clamp of offline renders."""
+    return torch.cat([x[:, :1], x, x[:, -1:]], dim=1)

@@ -14,9 +14,11 @@ renormalises their amplitudes, accumulates phase sample by sample and sums
 * ``sin(2 pi h phi)`` is evaluated from a split ``phi = hi + lo`` with
   ``hi`` on the 1/4096 grid, so ``h * hi`` is exact in float32.
 
-``render_hop_rows`` (one hop per serving slot) sends the audio-rate stage
-to ``ops/cuda/oscillator.osc_hop_slots``: the CUDA kernel for CUDA tensors,
-its plain PyTorch version for CPU tensors.
+The audio-rate stage dispatches by device: ``render_hop_rows`` (one hop
+per serving slot) to ``ops/cuda/oscillator.osc_hop_slots``, and
+``render_padded`` / ``oscillator_bank`` (offline frames, differentiable)
+to ``ops/cuda/osc_frames.render_from_phase`` -- the CUDA kernels for CUDA
+tensors, their plain PyTorch versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -26,8 +28,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ddsp_tpu_torch.ops.interp import hop_weight_cumsum, hop_weights
+from ddsp_tpu_torch.ops.interp import (
+    edge_pad_frames,
+    hop_weight_cumsum_on,
+    hop_weights_on,
+)
 
 TWO_PI = 2.0 * np.pi
 QUANT = 4096.0  # split grid: h * coarse phase is exact in f32 for h <= 2048
@@ -35,7 +42,11 @@ _PHASE_BLOCK = 128  # two-level phase prefix: parallel within, Kahan across
 
 
 def nyquist_normalized_amps(
-    f0: torch.Tensor, harm_amps: torch.Tensor, sample_rate: int
+    f0: torch.Tensor,
+    harm_amps: torch.Tensor,
+    sample_rate: int,
+    *,
+    h_start: int = 0,
 ) -> torch.Tensor:
     """Zero amplitudes of harmonics above Nyquist, renormalise to sum 1.
 
@@ -45,9 +56,11 @@ def nyquist_normalized_amps(
     Args:
       f0: (..., 1) fundamental frequency in Hz.
       harm_amps: (..., H) harmonic amplitude distribution.
+      h_start: ``harm_amps[..., i]`` belongs to harmonic ``h_start + i + 1``
+        (a slice of the bank).
     """
     n_harmonics = harm_amps.shape[-1]
-    h = torch.arange(1, n_harmonics + 1, dtype=f0.dtype, device=f0.device)
+    h = torch.arange(1, n_harmonics + 1, dtype=f0.dtype, device=f0.device) + h_start
     amps = torch.where((f0 * h) > (sample_rate // 2), 0.0, harm_amps)
     return amps / amps.sum(dim=-1, keepdim=True)
 
@@ -72,7 +85,7 @@ def _fundamental_phase_cycles(
     """
     w = f0_pad / sample_rate  # cycles per sample, frame rate
     left, mid, right = w[:, :-2], w[:, 1:-1], w[:, 2:]  # (B, T)
-    csum = torch.as_tensor(hop_weight_cumsum(hop), device=f0_pad.device)
+    csum = hop_weight_cumsum_on(hop, f0_pad.device)
     partial = (
         left[:, :, None] * csum[:, 0]
         + mid[:, :, None] * csum[:, 1]
@@ -113,15 +126,18 @@ def _fundamental_phase_cycles(
     return phi - torch.floor(phi)
 
 
-def harmonic_sines(phase1: torch.Tensor, n_harmonics: int) -> torch.Tensor:
-    """sin(2 pi h phi) for h = 1..H from the fundamental phase, (..., H).
+def harmonic_sines(
+    phase1: torch.Tensor, n_harmonics: int, h_start: int = 0
+) -> torch.Tensor:
+    """sin(2 pi h phi) for h = h_start+1..h_start+H from the fundamental
+    phase, (..., H).
 
     ``phi = hi + lo`` with ``hi`` on the 1/4096 grid makes ``h * hi`` exact,
     so the harmonic phase error stays ~h * ulp(phi) instead of ulp(h * phi).
     """
     h = torch.arange(
         1, n_harmonics + 1, dtype=phase1.dtype, device=phase1.device
-    )
+    ) + h_start
     hi = torch.floor(phase1 * QUANT) / QUANT
     lo = phase1 - hi
     coarse = hi[..., None] * h  # exact
@@ -131,23 +147,25 @@ def harmonic_sines(phase1: torch.Tensor, n_harmonics: int) -> torch.Tensor:
     return torch.sin(TWO_PI * frac)
 
 
-def _render_from_phase(
+def render_from_phase_plain(
     phase1: torch.Tensor,  # (B, T, hop) fractional fundamental phase
     amps_pad: torch.Tensor,  # (B, T+2, H) masked + renormalised amplitudes
     loud_pad: torch.Tensor,  # (B, T+2) overall loudness
+    h_start: int = 0,
 ) -> torch.Tensor:
     """sum_h amp_h(i) sin(2 pi h phi(i)) with linearly interpolated controls.
 
-    The plain version: it materialises the (B, T, hop, H) sine tensor and
-    contracts it with the three amplitude windows.  Returns (B, T*hop).
+    The plain version of the frame kernels (``ops/cuda/osc_frames.py``):
+    it materialises the (B, T, hop, H) sine tensor and contracts it with
+    the three amplitude windows.  Returns (B, T*hop).
     """
     b, t, hop = phase1.shape
-    sines = harmonic_sines(phase1, amps_pad.shape[-1])
+    sines = harmonic_sines(phase1, amps_pad.shape[-1], h_start)
     amp_win = torch.stack(
         [amps_pad[:, :-2], amps_pad[:, 1:-1], amps_pad[:, 2:]], dim=2
     )  # (B, T, 3, H)
     s = torch.einsum("btjh,btkh->btjk", sines, amp_win)
-    w = torch.as_tensor(hop_weights(hop), device=phase1.device)
+    w = hop_weights_on(hop, phase1.device)
     harm = torch.einsum("btjk,jk->btj", s, w)
     loud_win = torch.stack(
         [loud_pad[:, :-2], loud_pad[:, 1:-1], loud_pad[:, 2:]], dim=2
@@ -164,6 +182,9 @@ def render_padded(
     sample_rate: int,
     hop: int,
     initial_phase: Optional[torch.Tensor] = None,
+    frame_chunk: Optional[int] = None,
+    h_start: int = 0,
+    normalize_amps: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render audio from frame-rate controls that carry 1 frame of context.
 
@@ -171,20 +192,79 @@ def render_padded(
       f0_pad: (B, T+2, 1) Hz.  amps_pad: (B, T+2, H).  loud_pad: (B, T+2, 1).
         Index 0 is the frame before the span, index T+1 the frame after.
       initial_phase: (B,) fundamental phase entering the span, in cycles.
+      frame_chunk: CPU tensors only: render in chunks of this many frames
+        under ``torch.utils.checkpoint``, so the backward recomputes each
+        chunk's sine tensor instead of keeping the whole one.  CUDA tensors
+        ignore it: the kernel pair never materialises the harmonic tensor
+        (as the JAX package's Pallas path ignores it).
+      h_start: harmonic-number offset of ``amps_pad``'s slice of the bank.
+      normalize_amps: apply the Nyquist mask and renormalisation here.
 
     Returns:
       (audio (B, T*hop), final fundamental phase (B,)).
     """
+    from ddsp_tpu_torch.ops.cuda.osc_frames import render_from_phase
+
+    b, tp2, _ = f0_pad.shape
+    t = tp2 - 2
     if initial_phase is None:
-        initial_phase = torch.zeros(
-            f0_pad.shape[0], dtype=f0_pad.dtype, device=f0_pad.device
+        initial_phase = torch.zeros(b, dtype=f0_pad.dtype, device=f0_pad.device)
+    if normalize_amps:
+        amps_pad = nyquist_normalized_amps(
+            f0_pad, amps_pad, sample_rate, h_start=h_start
         )
-    amps_pad = nyquist_normalized_amps(f0_pad, amps_pad, sample_rate)
     phase1 = _fundamental_phase_cycles(
         f0_pad[..., 0], hop, sample_rate, initial_phase
     )
-    audio = _render_from_phase(phase1, amps_pad, loud_pad[..., 0])
-    return audio, phase1[:, -1, -1]
+    final_phase = phase1[:, -1, -1]
+    loudp = loud_pad[..., 0]
+    if phase1.device.type != "cpu" or frame_chunk is None or frame_chunk >= t:
+        return render_from_phase(phase1, amps_pad, loudp, h_start), final_phase
+    if t % frame_chunk:
+        raise ValueError(f"frame_chunk {frame_chunk} must divide T={t}")
+
+    def chunk(ph, amps, loud):
+        return render_from_phase_plain(ph, amps, loud, h_start)
+
+    parts = []
+    for i in range(0, t, frame_chunk):
+        window = slice(i, i + frame_chunk + 2)  # the chunk's frames + context
+        parts.append(checkpoint(
+            chunk, phase1[:, i : i + frame_chunk], amps_pad[:, window],
+            loudp[:, window], use_reentrant=False,
+        ))
+    return torch.cat(parts, dim=1), final_phase
+
+
+def oscillator_bank(
+    f0: torch.Tensor,
+    harm_amps: torch.Tensor,
+    loudness: torch.Tensor,
+    *,
+    sample_rate: int,
+    hop: int,
+    initial_phase: Optional[torch.Tensor] = None,
+    frame_chunk: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Offline additive synthesis from frame-rate controls.
+
+    Args:
+      f0: (B, T, 1) Hz.  harm_amps: (B, T, H).  loudness: (B, T, 1).
+
+    Returns:
+      (audio (B, T*hop), final fundamental phase (B,)), with
+      edge-replicated interpolation context (the reference
+      ``OscillatorBank.forward``, harmonic_oscillator.py:57-62).
+    """
+    return render_padded(
+        edge_pad_frames(f0),
+        edge_pad_frames(harm_amps),
+        edge_pad_frames(loudness),
+        sample_rate=sample_rate,
+        hop=hop,
+        initial_phase=initial_phase,
+        frame_chunk=frame_chunk,
+    )
 
 
 def render_hop_rows(
@@ -209,7 +289,7 @@ def render_hop_rows(
     phase1 = _fundamental_phase_cycles(
         f0_pad[..., 0], hop, sample_rate, initial_phase
     )  # (N, 1, hop)
-    w = torch.as_tensor(hop_weights(hop), device=f0_pad.device)
+    w = hop_weights_on(hop, f0_pad.device)
     audio = osc_hop_slots(
         phase1[:, 0].contiguous(),
         amps_n[:, 0].contiguous(),

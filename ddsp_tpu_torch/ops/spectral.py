@@ -1,8 +1,15 @@
-"""Framing and A-weighted loudness.
+"""Framing, the loss spectrogram and A-weighted loudness.
 
-Counterpart of the loudness part of ``ddsp_tpu/ops/spectral.py``:
-``torch.stft(center=False)`` with no window and the librosa A-weighting
-curve, as in the reference loudness encoder (encoder.py:135-156).
+Counterpart of ``ddsp_tpu/ops/spectral.py``:
+
+* ``spectrogram``: torchaudio ``Spectrogram(n_fft, hop)`` conventions, as
+  the reference MSS loss uses them (loss/mss_loss.py:23) -- centre reflect
+  padding, periodic Hann window, ``|X|^2``, output (..., bins, T) --
+  on ``torch.stft``.  The JAX package's hop-blocked and phase-decimated
+  matmul forms are TPU layouts of the same transform and are not ported;
+* loudness: ``torch.stft(center=False)`` with no window and the librosa
+  A-weighting curve, as in the reference loudness encoder
+  (encoder.py:135-156).
 """
 
 from __future__ import annotations
@@ -12,12 +19,45 @@ import functools
 import numpy as np
 import torch
 
+import torch.nn.functional as F
+
 from ddsp_tpu_torch.ops.fft import rfft_pair
+from ddsp_tpu_torch.ops.fir import hann_window
 
 
 def frame_signal(x: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
     """(..., L) -> (..., n_frames, frame_length) overlapping frames."""
     return x.unfold(-1, frame_length, hop)
+
+
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Reflect-pad the last axis (torch 'reflect': no edge repeat)."""
+    lead = x.shape[:-1]
+    out = F.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad), mode="reflect")
+    return out.reshape(*lead, out.shape[-1])
+
+
+@functools.lru_cache(maxsize=None)
+def _window(n_fft: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return hann_window(n_fft, dtype, device)
+
+
+def spectrogram(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """torchaudio-convention power spectrogram: (..., L) -> (..., n_fft//2+1, T).
+
+    Centre reflect padding by ``n_fft // 2``, periodic Hann window,
+    ``|rfft|^2``.  Every transform is a float32 ``torch.stft`` (cuFFT has
+    no bf16 transform), so the JAX package's ``matmul_dtype``, which casts
+    its TPU DFT matmuls, has no counterpart here.
+    """
+    lead = x.shape[:-1]
+    spec = torch.stft(
+        x.reshape(-1, x.shape[-1]), n_fft, hop_length=hop,
+        window=_window(n_fft, x.dtype, x.device), center=True,
+        pad_mode="reflect", return_complex=True,
+    )
+    mag = spec.real * spec.real + spec.imag * spec.imag
+    return mag.reshape(*lead, *mag.shape[-2:])
 
 
 def stft_magnitude_nocenter(

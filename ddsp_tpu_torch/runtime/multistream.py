@@ -27,6 +27,7 @@ import torch
 from torch.profiler import record_function
 
 from ddsp_tpu_torch.config import Config
+from ddsp_tpu_torch.device import resolve_device
 from ddsp_tpu_torch.models.controller import Decoder, controller_apply
 from ddsp_tpu_torch.models.crepe import Crepe
 from ddsp_tpu_torch.models.synths import (
@@ -43,27 +44,6 @@ from ddsp_tpu_torch.runtime.streaming import (
     feature_stream_init,
     make_feature_stream_step,
 )
-
-
-def serving_device(device="cuda") -> torch.device:
-    """Resolve a serving entry point's device.
-
-    CUDA is the default and requires a GPU: without one this raises
-    instead of carrying on on the CPU.  On CUDA, float32 matmuls and
-    cuDNN convolutions are set to full float32 (TF32 off), as the JAX
-    serving path computes in float32.
-    """
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available; pass device='cpu' to run on the CPU"
-            )
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 class MultiStreamState(NamedTuple):
@@ -287,7 +267,7 @@ class MultiStreamServer:
         noise_seed: int = 0,
         device="cuda",
     ):
-        self.device = serving_device(device)
+        self.device = resolve_device(device)
         self.conf = conf
         self.n_streams = n_streams
         self.hop = conf.hop_length

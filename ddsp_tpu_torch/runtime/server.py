@@ -19,9 +19,11 @@ Wire protocol (little-endian, one stream per connection):
   replies with one final tail block (the flush of the last buffered frame)
   and closes, freeing the slot for the next client.
 
-Run a host on the GPU:  ``python -m ddsp_tpu_torch.runtime.server
---lightning_ckpt=decoder.ckpt --crepe_checkpoint=tiny.pth
---listen=0.0.0.0:9600``
+Run a host on the GPU from the port's own training checkpoints (the
+newest ``step_*`` under ``--checkpoint_dir``) or a Lightning file:
+``python -m ddsp_tpu_torch.runtime.server --checkpoint_dir=ckpt
+--crepe_checkpoint=tiny.pth --listen=0.0.0.0:9600``
+(or ``--lightning_ckpt=decoder.ckpt``).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 
 from ddsp_tpu_torch.config import Config
+from ddsp_tpu_torch.device import resolve_device
 from ddsp_tpu_torch.models.controller import Decoder
 from ddsp_tpu_torch.models.crepe import Crepe
 from ddsp_tpu_torch.ops.fir import PRNGKey
@@ -45,7 +48,6 @@ from ddsp_tpu_torch.runtime.multistream import (
     make_multistream_step,
     multistream_init,
     reset_slots,
-    serving_device,
 )
 
 MAGIC = b"DSPT"
@@ -103,7 +105,7 @@ class StreamServer:
         noise_seed: int = 0,
         device="cuda",
     ):
-        self.device = serving_device(device)
+        self.device = resolve_device(device)
         self.conf = conf
         self.hop = conf.hop_length
         self.n_streams = n_streams
@@ -418,12 +420,37 @@ def parse_listen(listen: str) -> Address:
     return (host, int(port))
 
 
+def load_decoder(conf: Config, lightning_ckpt: str = "") -> Decoder:
+    """The decoder to serve: from a Lightning ``.ckpt`` when given, else
+    from the newest ``step_*`` checkpoint the port's trainer wrote under
+    ``conf.checkpoint_dir``.  Orbax directories written by the JAX package
+    are refused (they are read by ``ddsp_tpu`` only)."""
+    from ddsp_tpu_torch.models.convert import load_lightning_decoder
+    from ddsp_tpu_torch.training.trainer import (
+        latest_checkpoint,
+        load_checkpoint_payload,
+    )
+
+    if lightning_ckpt:
+        return load_lightning_decoder(lightning_ckpt, conf)
+    ckpt = latest_checkpoint(conf.checkpoint_dir)
+    if ckpt is None:
+        raise FileNotFoundError(
+            f"no finalized checkpoint under {conf.checkpoint_dir!r} "
+            "(pass --checkpoint_dir or --lightning_ckpt)"
+        )
+    decoder = Decoder(conf)
+    decoder.load_state_dict(load_checkpoint_payload(ckpt)["params"])
+    return decoder.eval()
+
+
 def main(argv=None) -> None:
     args = list(sys.argv[1:] if argv is None else argv)
     if "--help" in args or "-h" in args:
         print(
             "usage: python -m ddsp_tpu_torch.runtime.server "
-            "--lightning_ckpt=F.ckpt [--crepe_checkpoint=F.pth]\n"
+            "[--checkpoint_dir=DIR | --lightning_ckpt=F.ckpt] "
+            "[--crepe_checkpoint=F.pth]\n"
             "         [--listen=HOST:PORT|UNIX_PATH] [--n_streams=N] "
             "[--device=cuda|cpu] [--<config_field>=VALUE ...]\n\n"
             "Serve N concurrent real-time synth clients from one GPU over\n"
@@ -454,17 +481,11 @@ def main(argv=None) -> None:
         else:
             rest.append(a)
     conf = Config.from_flags(rest)
-    if not lightning_ckpt:
-        raise SystemExit(
-            "--lightning_ckpt is required: this package does not read Orbax "
-            "checkpoint directories"
-        )
-    serving_device(device)  # fail before loading anything without a GPU
+    resolve_device(device)  # fail before loading anything without a GPU
 
-    from ddsp_tpu_torch.models.convert import load_lightning_decoder
     from ddsp_tpu_torch.models.crepe import crepe_init, load_torch_checkpoint
 
-    params = load_lightning_decoder(lightning_ckpt, conf)
+    params = load_decoder(conf, lightning_ckpt)
     if crepe_checkpoint:
         crepe = load_torch_checkpoint(crepe_checkpoint, conf.crepe_capacity)
     else:

@@ -2,8 +2,9 @@
 
 The port must run on a machine with no jax: neither importing any of its
 modules nor ``chip_smoke.py`` may load jax or the JAX package.  Its
-serving entry points default to CUDA and must raise, not quietly run on
-the CPU, when there is no GPU and the caller did not ask for the CPU.
+serving and training entry points default to CUDA and must raise, not
+quietly run on the CPU, when there is no GPU and the caller did not ask
+for the CPU.
 """
 
 import ast
@@ -12,6 +13,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,10 +21,21 @@ import ddsp_tpu_torch
 from ddsp_tpu_torch.config import Config
 from ddsp_tpu_torch.models.controller import decoder_init
 from ddsp_tpu_torch.models.crepe import crepe_init
+from ddsp_tpu_torch.data import dataset
+from ddsp_tpu_torch.ops.fir import PRNGKey
 from ddsp_tpu_torch.runtime import server
 from ddsp_tpu_torch.runtime.multistream import MultiStreamServer
+from ddsp_tpu_torch.training import train, trainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the training slice's modules, which the import walk below must reach
+TRAINING_MODULES = (
+    "ddsp_tpu_torch.device", "ddsp_tpu_torch.losses",
+    "ddsp_tpu_torch.data.dataset", "ddsp_tpu_torch.models.encoder",
+    "ddsp_tpu_torch.models.autoencoder", "ddsp_tpu_torch.ops.cuda.build",
+    "ddsp_tpu_torch.ops.cuda.osc_frames", "ddsp_tpu_torch.training.trainer",
+    "ddsp_tpu_torch.training.train", "ddsp_tpu_torch.utils.profile_training",
+)
 
 
 def _banned(name: str) -> bool:
@@ -40,7 +53,7 @@ def test_every_module_imports_without_jax():
             ddsp_tpu_torch.__path__, "ddsp_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        print(len(names))
+        print(",".join(names))
         print(",".join(sorted(m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "jaxlib"))
               or m == "ddsp_tpu" or m.startswith("ddsp_tpu."))))
@@ -52,8 +65,10 @@ def test_every_module_imports_without_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    count, loaded = proc.stdout.split("\n")[:2]
-    assert int(count) >= 18
+    names, loaded = proc.stdout.split("\n")[:2]
+    names = names.split(",")
+    assert len(names) >= 28
+    assert set(TRAINING_MODULES) <= set(names)
     assert loaded == "", f"port imports pulled in {loaded}"
 
 
@@ -94,7 +109,18 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("entry", ["multistream", "stream_server", "cli"])
+def _features(conf, n=4):
+    t = conf.frames_per_example
+    return {"f0": np.full((n, t, 1), 200.0, np.float32),
+            "normalized_cents": np.full((n, t, 1), 0.4, np.float32),
+            "loudness": np.full((n, t, 1), 0.7, np.float32),
+            "audio": np.zeros((n, conf.example_length), np.float32)}
+
+
+@pytest.mark.parametrize("entry", [
+    "multistream", "stream_server", "cli",
+    "fit", "init_state", "extract_features", "train_cli",
+])
 def test_entry_points_raise_without_cuda(no_cuda, entry, tmp_path):
     params, crepe = decoder_init(CONF), crepe_init()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -102,8 +128,16 @@ def test_entry_points_raise_without_cuda(no_cuda, entry, tmp_path):
             MultiStreamServer(params, crepe, CONF, n_streams=2)
         elif entry == "stream_server":
             server.StreamServer(params, crepe, CONF, str(tmp_path / "s.sock"))
-        else:
+        elif entry == "cli":
             server.main(["--lightning_ckpt=missing.ckpt", "--n_streams=2"])
+        elif entry == "fit":
+            trainer.fit(CONF, _features(CONF), num_steps=1)
+        elif entry == "init_state":
+            trainer.init_state(PRNGKey(0), CONF)
+        elif entry == "extract_features":
+            dataset.extract_features(crepe, CONF, examples=_features(CONF)["audio"])
+        else:
+            train.main([f"--data_dir={tmp_path}", "--num_steps=1"])
 
 
 def test_explicit_cpu_runs(no_cuda):
@@ -111,3 +145,10 @@ def test_explicit_cpu_runs(no_cuda):
                             device="cpu")
     out = srv.process(torch.zeros(2, CONF.hop_length).numpy())
     assert out.shape == (2, CONF.hop_length)
+    conf = CONF.replace(batch_size=2, example_duration=0.2, mss_ffts=(128, 64),
+                        checkpoint_every=0)
+    state = trainer.init_state(PRNGKey(0), conf, device="cpu")
+    assert state.rng.device.type == "cpu"
+    state, metrics = trainer.fit(conf, _features(conf), num_steps=1, state=state,
+                                 device="cpu")
+    assert state.step == 1 and np.isfinite(metrics["loss"])
