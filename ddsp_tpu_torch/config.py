@@ -14,10 +14,14 @@ Some fields only choose a TPU code path in the JAX package.  In this port:
   (N, C, H) convolution stack, the same math as both JAX layouts;
 * ``crepe_compute_dtype`` and ``compute_dtype`` are read by nothing: the
   port's CREPE and controller run in full float32 (TF32 off);
-* ``loss_matmul_dtype`` and ``reverb_grad_matmul_dtype`` are accepted and
-  change nothing: the port runs every loss STFT and every reverb FFT,
-  forward and backward, in float32 on ``torch.fft``, since cuFFT has no
-  bf16 transform.
+* ``loss_matmul_dtype`` ('bfloat16' by default) selects, under
+  ``ops/spectral.set_stft_impl('pallas')``, the bf16 power-STFT kernels for
+  the loss spectrograms, as it selects the Pallas kernels in the JAX
+  package; under the default 'auto' every loss STFT is a float32
+  ``torch.stft``, whatever its value;
+* ``reverb_grad_matmul_dtype`` is accepted and changes nothing: the
+  reverb's forward and backward are float32 ``torch.fft`` transforms,
+  since cuFFT has no bf16 transform.
 """
 
 from __future__ import annotations
@@ -96,9 +100,9 @@ class Config:
     # dtype of the JAX package's neural-net matmuls.  Not read by the
     # port, which runs the controller in float32.
     compute_dtype: str = "float32"
-    # dtype of the JAX package's MSS-loss STFT matmul inputs.  Changes
-    # nothing in the port: its loss STFTs are float32 torch.stft (cuFFT has
-    # no bf16 transform).
+    # dtype of the MSS-loss STFT matmul inputs.  In the port 'bfloat16'
+    # routes the loss spectrograms through the bf16 power-STFT kernels when
+    # set_stft_impl('pallas') is set; otherwise they are float32 torch.stft.
     loss_matmul_dtype: str = "bfloat16"
     # dtype of the JAX package's reverb-convolution backward DFT matmuls.
     # Changes nothing in the port: the reverb's forward and backward are

@@ -4,8 +4,12 @@ Counterpart of ``ddsp_tpu/losses.py`` (reference loss/mss_loss.py:11-68):
 per-scale loss = L1(|S|^2) + alpha * L1(log2(|S|^2 + eps)) with
 torchaudio-Spectrogram conventions (power-2 magnitudes, hop = n_fft * (1 -
 overlap), centred reflect padding, periodic Hann), summed over FFT sizes.
-The JAX package's ``matmul_dtype`` casts its TPU DFT matmuls; the port's
-spectrograms are float32 ``torch.stft`` (ops/spectral.py), so it has none.
+
+``matmul_dtype`` is the JAX package's: ``torch.bfloat16`` (the training
+default, ``Config.loss_matmul_dtype``) sends each spectrogram through the
+bf16 power-STFT kernels when ``ops/spectral.set_stft_impl('pallas')`` is
+set; otherwise, and for ``None``, the spectrograms are float32
+``torch.stft`` (ops/spectral.py).
 """
 
 from __future__ import annotations
@@ -39,11 +43,14 @@ def sss_loss(
     alpha: float = 1.0,
     overlap: float = 0.75,
     eps: float = 1e-7,
+    matmul_dtype=None,
 ) -> torch.Tensor:
     """Single-scale spectral loss (reference loss/mss_loss.py:11-33)."""
     hop = int(n_fft * (1 - overlap))
     return _scale_loss(
-        spectrogram(pred, n_fft, hop), spectrogram(true, n_fft, hop), alpha, eps
+        spectrogram(pred, n_fft, hop, matmul_dtype),
+        spectrogram(true, n_fft, hop, matmul_dtype),
+        alpha, eps,
     )
 
 
@@ -54,13 +61,14 @@ def mss_loss(
     alpha: float = 1.0,
     overlap: float = 0.75,
     eps: float = 1e-7,
+    matmul_dtype=None,
     use_reverb: bool = True,
 ) -> torch.Tensor:
     """Multi-scale spectral loss (reference loss/mss_loss.py:36-68); dict
     inputs follow the reference's MSSLoss convention (``_as_audio``)."""
     pred = _as_audio(pred, "audio_reverb" if use_reverb else "audio_synth")
     true = _as_audio(true, "audio")
-    return sum(sss_loss(pred, true, n, alpha, overlap, eps) for n in ffts)
+    return sum(sss_loss(pred, true, n, alpha, overlap, eps, matmul_dtype) for n in ffts)
 
 
 def mss_loss_per_scale(
@@ -70,9 +78,13 @@ def mss_loss_per_scale(
     alpha: float = 1.0,
     overlap: float = 0.75,
     eps: float = 1e-7,
+    matmul_dtype=None,
 ) -> Dict[str, torch.Tensor]:
     """Per-scale loss terms, for structured training metrics."""
-    return {f"mss_{n}": sss_loss(pred, true, n, alpha, overlap, eps) for n in ffts}
+    return {
+        f"mss_{n}": sss_loss(pred, true, n, alpha, overlap, eps, matmul_dtype)
+        for n in ffts
+    }
 
 
 # --- cached-target variant ---------------------------------------------------
@@ -88,10 +100,12 @@ def target_spectrograms(
     true: torch.Tensor,
     ffts: Sequence[int] = DEFAULT_FFTS,
     overlap: float = 0.75,
+    matmul_dtype=None,
 ) -> Dict[str, torch.Tensor]:
     """Per-scale power spectrograms of the (fixed) target audio."""
     return {
-        target_mag_key(n): spectrogram(true, n, int(n * (1 - overlap))) for n in ffts
+        target_mag_key(n): spectrogram(true, n, int(n * (1 - overlap)), matmul_dtype)
+        for n in ffts
     }
 
 
@@ -102,12 +116,14 @@ def mss_loss_per_scale_cached(
     alpha: float = 1.0,
     overlap: float = 0.75,
     eps: float = 1e-7,
+    matmul_dtype=None,
 ) -> Dict[str, torch.Tensor]:
     """Per-scale loss terms against precomputed target spectrograms: the
     same math as :func:`mss_loss_per_scale` when ``target_mags`` came from
-    :func:`target_spectrograms` with the same FFT sizes and overlap."""
+    :func:`target_spectrograms` with the same FFT sizes, overlap and
+    ``matmul_dtype``."""
     out = {}
     for n in ffts:
-        s_pred = spectrogram(pred, n, int(n * (1 - overlap)))
+        s_pred = spectrogram(pred, n, int(n * (1 - overlap)), matmul_dtype)
         out[f"mss_{n}"] = _scale_loss(s_pred, target_mags[target_mag_key(n)], alpha, eps)
     return out

@@ -1,10 +1,11 @@
 """Weight carry-over into the port's modules.
 
-* ``decoder_from_jax`` / ``crepe_from_jax`` take the JAX package's
-  parameter trees as numpy arrays (``jax.tree.map(np.asarray, params)``,
-  done by the caller so this package never imports jax), and
-  ``decoder_to_jax`` gives a decoder back in that layout, so a test can
-  compare parameters after a training step;
+* ``decoder_from_jax`` / ``crepe_from_jax`` / ``autoencoder_from_jax``
+  take the JAX package's parameter trees as numpy arrays
+  (``jax.tree.map(np.asarray, params)``, done by the caller so this
+  package never imports jax), and the ``*_to_jax`` functions give the
+  modules back in that layout, so a test can compare parameters after a
+  training or finetune step;
 * ``decoder_from_state_dict`` / ``load_lightning_decoder`` read the
   reference Decoder layout, which ``ddsp_tpu/models/torch_export.py``
   writes and the reference's Lightning checkpoints hold.
@@ -16,6 +17,7 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from ddsp_tpu_torch.config import Config
 from ddsp_tpu_torch.models.controller import Decoder
@@ -151,3 +153,45 @@ def crepe_from_jax(np_tree: Dict) -> Crepe:
     if missing or result.unexpected_keys:
         raise KeyError(f"CREPE tree mismatch: {missing} {result.unexpected_keys}")
     return model.eval()
+
+
+def crepe_to_jax(crepe: Crepe) -> Dict:
+    """:class:`Crepe` -> ddsp_tpu CREPE tree ``{'layers': [...],
+    'classifier': ...}`` with numpy leaves: the inverse of
+    :func:`crepe_from_jax` (BatchNorm statistics as ``mean`` / ``var``)."""
+    sd = {k: v.detach().cpu().numpy() for k, v in crepe.state_dict().items()}
+    layers = [
+        {
+            "weight": sd[f"conv{i}.weight"],
+            "bias": sd[f"conv{i}.bias"],
+            "bn": {
+                "weight": sd[f"conv{i}_BN.weight"],
+                "bias": sd[f"conv{i}_BN.bias"],
+                "mean": sd[f"conv{i}_BN.running_mean"],
+                "var": sd[f"conv{i}_BN.running_var"],
+            },
+        }
+        for i in range(1, 7)
+    ]
+    return {
+        "layers": layers,
+        "classifier": {"weight": sd["classifier.weight"], "bias": sd["classifier.bias"]},
+    }
+
+
+def autoencoder_from_jax(np_tree: Dict, conf: Config) -> nn.ModuleDict:
+    """ddsp_tpu autoencoder tree ``{'decoder', 'crepe'}`` with numpy
+    leaves -> ``nn.ModuleDict`` of :class:`Decoder` and :class:`Crepe`."""
+    return nn.ModuleDict({
+        "decoder": decoder_from_jax(np_tree["decoder"], conf),
+        "crepe": crepe_from_jax(np_tree["crepe"]),
+    })
+
+
+def autoencoder_to_jax(params) -> Dict:
+    """``{'decoder', 'crepe'}`` modules -> the ddsp_tpu autoencoder tree
+    with numpy leaves: the inverse of :func:`autoencoder_from_jax`."""
+    return {
+        "decoder": decoder_to_jax(params["decoder"]),
+        "crepe": crepe_to_jax(params["crepe"]),
+    }

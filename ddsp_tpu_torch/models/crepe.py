@@ -5,7 +5,9 @@ six [pad -> conv (stride 4, then 1) -> ReLU -> inference BatchNorm
 (eps 1e-3) -> maxpool 2] stages over 1024-sample windows, then a sigmoid
 classifier over 360 pitch bins.  The stack runs as 1-D convolutions in the
 torch-shaped (N, C, H) layout; the JAX package's channels-last form is a
-TPU layout choice with the same math.
+TPU layout choice with the same math.  Also the three pitch decodes
+(argmax, and the differentiable local averages that finetuning needs) and
+``make_statistics_trainable`` for the finetune state.
 """
 
 from __future__ import annotations
@@ -119,20 +121,66 @@ def pitch_argmax(probabilities: torch.Tensor):
     return freq, harmonicity, fbins / 359.0
 
 
-def _not_ported(name: str):
-    raise NotImplementedError(
-        f"{name} is not ported yet: the differentiable pitch decodes come "
-        "with the finetune slice (ROADMAP.md, section 1, item 1)"
-    )
+def _local_average(probabilities: torch.Tensor, center: torch.Tensor,
+                   cents_offsets: torch.Tensor):
+    """Probability-weighted mean cents of the 9 bins ``center - 4 ..
+    center + 4`` (zero-padded at the edges), each value paired with the
+    cents of ``center + cents_offsets``; returns (freq, harmonicity,
+    normalized_cents), each (..., 1).  The gradient flows through the
+    gathered probabilities, not through the argmax."""
+    value_offsets = torch.arange(-4, 5, device=probabilities.device)
+    padded = F.pad(probabilities, (4, 4))
+    values = padded.gather(-1, center + value_offsets + 4)  # (..., 9)
+    cents_cols = cents_map((center + cents_offsets).to(probabilities.dtype))
+    cents = (values * cents_cols).sum(-1, keepdim=True) / values.sum(-1, keepdim=True)
+    harmonicity = probabilities.gather(-1, center)
+    min_c, max_c = cents_map(0.0), cents_map(359.0)
+    return freq_map(cents), harmonicity, (cents - min_c) / (max_c - min_c)
 
 
 def pitch_weighted(probabilities: torch.Tensor):
-    """Local weighted-average pitch decode (``ddsp_tpu``'s
-    ``pitch_weighted``): not ported yet, raises."""
-    _not_ported("pitch_weighted")
+    """Local weighted-average decode around the argmax bin (the JAX
+    package's ``pitch_weighted``): mean cents of the bins within +-4 of the
+    argmax, weighted by probability, with each probability paired with its
+    own bin's cents (the reference's evident intent, encoder.py:91-118).
+    Differentiable in the probabilities: the finetune path's decode."""
+    center = probabilities.argmax(dim=-1, keepdim=True)
+    offsets = torch.arange(-4, 5, device=probabilities.device)
+    return _local_average(probabilities, center, offsets)
+
+
+# the reference's ``selection[:, :, idx]`` with idx in -4..4 stores the
+# offsets' cents in Python's negative-index order
+_REF_CENTS_OFFSETS = (0, 1, 2, 3, 4, -4, -3, -2, -1)
 
 
 def pitch_centered_ref(probabilities: torch.Tensor, center=None):
-    """The reference's bug-compatible ``pitch_centered`` decode
-    (``ddsp_tpu``'s ``pitch_centered_ref``): not ported yet, raises."""
-    _not_ported("pitch_centered_ref")
+    """Bug-compatible replica of the reference's ``pitch_centered``
+    (encoder.py:94-117, the JAX package's ``pitch_centered_ref``): the
+    probabilities of bins ``center - 4 .. center + 4`` in ascending order
+    are paired with the cents of offsets [0, 1, 2, 3, 4, -4, -3, -2, -1]."""
+    if center is None:
+        center = probabilities.argmax(dim=-1, keepdim=True)
+    offsets = torch.tensor(_REF_CENTS_OFFSETS, device=probabilities.device)
+    return _local_average(probabilities, center, offsets)
+
+
+def make_statistics_trainable(crepe: Crepe) -> Crepe:
+    """Turn every BatchNorm's ``running_mean`` / ``running_var`` buffer into
+    an ``nn.Parameter`` of the same name (in place; returns ``crepe``).
+
+    The JAX package keeps them in the parameter pytree (``crepe.py:60-61``,
+    ``:95-96``), so its finetune step differentiates them, Adam updates them
+    and ``grad_norm`` counts them; the port's finetune state does the same
+    through this.  The state-dict keys do not change; ``num_batches_tracked``
+    stays a buffer (it is not in the JAX tree).  The frozen encoder and
+    serving read the statistics the same way either way.
+    """
+    for i in range(1, 7):
+        bn = getattr(crepe, f"conv{i}_BN")
+        for name in ("running_mean", "running_var"):
+            value = getattr(bn, name)
+            if not isinstance(value, nn.Parameter):
+                del bn._buffers[name]
+                bn.register_parameter(name, nn.Parameter(value.detach().clone()))
+    return crepe

@@ -7,13 +7,15 @@ model/autoencoder/encoder.py:13-177):
   std, as torch), the aligned CREPE hop ``int(hop * (resampled_len -
   1024) / (orig_len - n_fft))`` so that CREPE frames equal STFT frames
   (the 172-frame contract), frozen CREPE over unfolded 1024-sample
-  windows, argmax pitch decode;
+  windows, pitch decode by ``conf.pitch_decode`` ('argmax', 'weighted'
+  or 'centered_ref');
 * loudness: rectangular-window STFT dB + A-weighting, -90 dB floor
   mapping, mean over bins.
 
-Only the 'argmax' decode (the reference's training path) is ported; the
-'weighted' and 'centered_ref' decodes and CREPE finetuning wait for the
-finetune slice (ROADMAP.md).
+CREPE is frozen by default (the reference freezes it, encoder.py:35-37);
+``freeze_crepe=False`` lets the gradient flow through the resampling, the
+normalisation, the framing, CREPE and the decode into the CREPE weights
+(analysis-by-synthesis finetuning, ``training/trainer.py``).
 """
 
 from __future__ import annotations
@@ -63,8 +65,8 @@ def crepe_frame_hop(orig_len: int, resampled_len: int, conf: Config) -> int:
 
 _DECODERS = {
     "argmax": pitch_argmax,
-    "weighted": pitch_weighted,  # raises: the finetune slice
-    "centered_ref": pitch_centered_ref,  # raises: the finetune slice
+    "weighted": pitch_weighted,
+    "centered_ref": pitch_centered_ref,  # bug-compatible A/B variant
 }
 
 
@@ -83,17 +85,13 @@ def f0_encoder_apply(
     """(B, L) audio -> f0 features at the STFT frame rate:
     {'f0', 'harmonicity', 'probabilities', 'normalized_cents'}.
 
-    The frozen encoder runs under ``torch.no_grad`` (the argmax decode
-    passes no gradient in any case); ``freeze_crepe=False`` is the finetune
-    slice's and raises here.
+    The frozen encoder runs under ``torch.no_grad``; with
+    ``freeze_crepe=False`` the whole encoder is differentiable (the unbiased
+    std's ``+1e-8`` included), so a differentiable decode passes gradient
+    into every CREPE weight.
     """
-    if not freeze_crepe:
-        raise NotImplementedError(
-            "CREPE finetuning (freeze_crepe=False) comes with the finetune "
-            "slice (ROADMAP.md, queue 1)"
-        )
     decode = _pitch_decoder(conf)
-    with torch.no_grad():
+    with torch.set_grad_enabled(not freeze_crepe and torch.is_grad_enabled()):
         orig_len = audio.shape[-1]
         x = resample(audio, conf.sample_rate, conf.crepe_sample_rate)
         mean = x.mean(dim=-1, keepdim=True)

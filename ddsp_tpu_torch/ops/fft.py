@@ -13,6 +13,10 @@ from typing import Optional, Tuple
 
 import torch
 
+# The largest DFT the JAX package evaluates as one matrix
+# (``ddsp_tpu/ops/fft.py:35``); its power-STFT kernels take n_fft up to it.
+DIRECT_MAX = 4096
+
 
 def next_pow2(n: int) -> int:
     p = 1

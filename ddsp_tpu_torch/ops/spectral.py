@@ -4,9 +4,13 @@ Counterpart of ``ddsp_tpu/ops/spectral.py``:
 
 * ``spectrogram``: torchaudio ``Spectrogram(n_fft, hop)`` conventions, as
   the reference MSS loss uses them (loss/mss_loss.py:23) -- centre reflect
-  padding, periodic Hann window, ``|X|^2``, output (..., bins, T) --
-  on ``torch.stft``.  The JAX package's hop-blocked and phase-decimated
-  matmul forms are TPU layouts of the same transform and are not ported;
+  padding, periodic Hann window, ``|X|^2``, output (..., bins, T).  By
+  default a float32 ``torch.stft``; after ``set_stft_impl('pallas')`` the
+  bf16 loss spectrograms go through the hand-written CUDA power-STFT
+  kernels (``ops/cuda/stft.py``), routed exactly as the JAX package routes
+  its Pallas kernels.  The JAX package's XLA hop-blocked and
+  phase-decimated matmul forms are TPU layouts of the transform and are
+  not ported;
 * loudness: ``torch.stft(center=False)`` with no window and the librosa
   A-weighting curve, as in the reference loudness encoder
   (encoder.py:135-156).
@@ -15,13 +19,15 @@ Counterpart of ``ddsp_tpu/ops/spectral.py``:
 from __future__ import annotations
 
 import functools
+from typing import Tuple
 
 import numpy as np
 import torch
 
 import torch.nn.functional as F
 
-from ddsp_tpu_torch.ops.fft import rfft_pair
+from ddsp_tpu_torch.ops.cuda.stft import StftPower
+from ddsp_tpu_torch.ops.fft import DIRECT_MAX, rfft_pair
 from ddsp_tpu_torch.ops.fir import hann_window
 
 
@@ -42,14 +48,64 @@ def _window(n_fft: int, dtype: torch.dtype, device: torch.device) -> torch.Tenso
     return hann_window(n_fft, dtype, device)
 
 
-def spectrogram(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+# STFT implementation switch, named as in the JAX package.  'auto' ==
+# 'xla': the float32 torch.stft.  'pallas' selects the hand-written CUDA
+# power-STFT kernels (K3 forward, K4 backward; their plain versions on a
+# CPU tensor) wherever the JAX package would take its Pallas kernels.
+_STFT_IMPL = "auto"
+
+
+def set_stft_impl(impl: str) -> None:
+    """Select the loss spectrogram's route: 'auto' | 'xla' | 'pallas'."""
+    global _STFT_IMPL
+    if impl not in ("auto", "xla", "pallas"):
+        raise ValueError(f"unknown STFT impl {impl!r}: expected 'auto', 'xla' or 'pallas'")
+    _STFT_IMPL = impl
+
+
+def hop_blocks(x: torch.Tensor, n_fft: int, hop: int) -> Tuple[torch.Tensor, int]:
+    """(..., L) -> (hop blocks (N, Lp/hop, hop), n_frames): reflect-pad by
+    ``n_fft // 2``, zero-pad to a hop multiple and view; N is the product
+    of the leading axes.  Ordinary autograd, as the JAX package keeps it
+    outside its ``custom_vjp``."""
+    xp = reflect_pad(x, n_fft // 2).reshape(-1, x.shape[-1] + n_fft)
+    lp = xp.shape[-1]
+    lb = -(-lp // hop) * hop
+    if lb > lp:
+        xp = F.pad(xp, (0, lb - lp))
+    return xp.reshape(xp.shape[0], lb // hop, hop), 1 + (lp - n_fft) // hop
+
+
+def spectrogram_power_blocked(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """Power spectrogram through the power-STFT kernel pair: (..., L) ->
+    (..., bins, T), :func:`hop_blocks` then
+    :class:`~ddsp_tpu_torch.ops.cuda.stft.StftPower`
+    (``ddsp_tpu/ops/pallas/stft.py:spectrogram_power_pallas``)."""
+    xb, n_frames = hop_blocks(x, n_fft, hop)
+    mag = StftPower.apply(xb, n_fft, hop, n_frames)
+    return mag.reshape(*x.shape[:-1], n_frames, n_fft // 2 + 1).transpose(-1, -2)
+
+
+def spectrogram(
+    x: torch.Tensor, n_fft: int, hop: int, matmul_dtype=None
+) -> torch.Tensor:
     """torchaudio-convention power spectrogram: (..., L) -> (..., n_fft//2+1, T).
 
     Centre reflect padding by ``n_fft // 2``, periodic Hann window,
-    ``|rfft|^2``.  Every transform is a float32 ``torch.stft`` (cuFFT has
-    no bf16 transform), so the JAX package's ``matmul_dtype``, which casts
-    its TPU DFT matmuls, has no counterpart here.
+    ``|rfft|^2``.  With ``set_stft_impl('pallas')``, ``matmul_dtype=
+    torch.bfloat16``, ``hop`` dividing ``n_fft`` and ``n_fft <= 4096`` (the
+    conditions of ``ddsp_tpu/ops/spectral.py:189-200``) it runs the
+    power-STFT kernels on bf16 inputs with float32 sums; otherwise a
+    float32 ``torch.stft`` (cuFFT has no bf16 transform, so there
+    ``matmul_dtype`` changes nothing).
     """
+    if (
+        _STFT_IMPL == "pallas"
+        and matmul_dtype == torch.bfloat16
+        and n_fft % hop == 0
+        and n_fft <= DIRECT_MAX
+    ):
+        return spectrogram_power_blocked(x, n_fft, hop)
     lead = x.shape[:-1]
     spec = torch.stft(
         x.reshape(-1, x.shape[-1]), n_fft, hop_length=hop,

@@ -2,7 +2,10 @@
 
 Counterpart of ``ddsp_tpu/training/train.py`` (reference
 train/train.py:46-55): WAV files -> examples -> frozen-encoder features ->
-decoder training, with every Config field settable as ``--key=value``.
+decoder training, with every Config field settable as ``--key=value``;
+then, with ``--finetune_crepe=N`` (and ``--pitch_decode=weighted``), N
+analysis-by-synthesis steps that finetune CREPE with the decoder, logged to
+``finetune_metrics.jsonl`` and checkpointed under ``checkpoint_dir/finetune``.
 Runs on CUDA unless ``--device=cpu``.
 """
 
@@ -16,15 +19,20 @@ from ddsp_tpu_torch.device import resolve_device
 from ddsp_tpu_torch.models.crepe import crepe_init, load_torch_checkpoint
 from ddsp_tpu_torch.ops.fir import PRNGKey
 from ddsp_tpu_torch.training.trainer import (
+    finetune,
     fit,
     init_state,
     latest_checkpoint,
+    make_finetune_step,
     restore_checkpoint,
+    save_checkpoint,
+    wait_for_checkpoints,
 )
 
 
 def main(argv=None):
-    """Run the CLI on ``argv``; returns the final ``TrainState`` (None
+    """Run the CLI on ``argv``; returns the final ``TrainState``: the
+    finetune state's with ``--finetune_crepe``, else the decoder's (None
     for ``--help``)."""
     argv = sys.argv[1:] if argv is None else argv
     extra = {
@@ -38,7 +46,9 @@ def main(argv=None):
         # eval_loss (reference: limit_val_batches=0.01)
         "eval_split": 0.0,
         # analysis-by-synthesis steps after the feature-based training:
-        # not ported yet (the finetune slice)
+        # decoder and CREPE optimised through the encoder (needs
+        # --pitch_decode=weighted); the reference only comments on this
+        # (encoder.py:32-34)
         "finetune_crepe": 0,
         "device": "cuda",
     }
@@ -62,11 +72,8 @@ def main(argv=None):
             flags.append(a)
     conf = Config.from_flags(flags)
     if extra["finetune_crepe"]:
-        raise NotImplementedError(
-            "--finetune_crepe is not ported yet: CREPE finetuning comes with "
-            "the finetune slice (ROADMAP.md, queue 1); train with "
-            "python -m ddsp_tpu.training.train for now"
-        )
+        # the finetune precondition, checked before the long main run
+        make_finetune_step(conf)
     device = resolve_device(extra["device"])
 
     if extra["crepe_checkpoint"]:
@@ -109,6 +116,21 @@ def main(argv=None):
         device=device,
     )
     print("final:", metrics)
+
+    if extra["finetune_crepe"]:
+        print(f"finetuning CREPE for {extra['finetune_crepe']} steps ...")
+        state, ft_metrics = finetune(
+            conf,
+            features["audio"],
+            extra["finetune_crepe"],
+            state.params,
+            crepe,
+            log_path=f"{conf.checkpoint_dir}/finetune_metrics.jsonl",
+            device=device,
+        )
+        save_checkpoint(f"{conf.checkpoint_dir}/finetune", state, conf)
+        wait_for_checkpoints()  # a failed commit raises before success is declared
+        print("finetune final:", ft_metrics)
     return state
 
 

@@ -3,15 +3,21 @@
 Counterpart of ``ddsp_tpu/training/trainer.py`` (reference
 train/train.py:15-55): decoder-only training against the multi-scale
 spectral loss on precomputed features, Adam(1e-3) with a loss-plateau LR
-decay, held-out loss, reconstruction dumps, JSONL metrics.
+decay, held-out loss, reconstruction dumps, JSONL metrics; and the
+analysis-by-synthesis finetune of CREPE with the decoder through the
+encoder (``loss_fn_e2e``, ``make_finetune_step``, ``finetune``).
 
 In the port:
 
-* the decoder is an ``nn.Module`` whose parameters the optimizer updates
+* the parameters are an ``nn.Module`` (the decoder, or for finetuning an
+  ``nn.ModuleDict`` ``{'decoder', 'crepe'}``) that the optimizer updates
   in place (JAX returns new arrays); ``TrainState`` carries the step, the
   module, the optimizer state (Adam moments and the plateau state, as
   tensors on the device) and the threefry key, split every step as the JAX
   trainer splits it, so the two draw the same noise;
+* the loss spectrograms take ``conf.loss_matmul_dtype`` ('bfloat16' ->
+  ``torch.bfloat16``, 'float32' -> None), which selects the bf16
+  power-STFT kernels under ``ops/spectral.set_stft_impl('pallas')``;
 * the optimizer is Adam followed by optax's ``reduce_on_plateau`` state
   machine, written out here (``AdamPlateau``), not torch's
   ``ReduceLROnPlateau``: the loss is averaged over windows of
@@ -30,6 +36,7 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import json
 import os
 import re
@@ -39,6 +46,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 from torch.profiler import record_function
 
 from ddsp_tpu_torch.config import Config
@@ -49,7 +57,9 @@ from ddsp_tpu_torch.losses import (
     target_mag_key,
     target_spectrograms,
 )
-from ddsp_tpu_torch.models.controller import Decoder, decoder_apply, decoder_init
+from ddsp_tpu_torch.models.autoencoder import autoencoder_apply, autoencoder_init
+from ddsp_tpu_torch.models.controller import decoder_apply, decoder_init
+from ddsp_tpu_torch.models.crepe import make_statistics_trainable
 from ddsp_tpu_torch.ops.fir import PRNGKey, fold_in, split
 
 # keys the train step consumes; the rest of the feature dict
@@ -187,7 +197,7 @@ def make_optimizer(conf: Config) -> AdamPlateau:
 # --- state, loss, steps ----------------------------------------------------------
 class TrainState(NamedTuple):
     step: int
-    params: Decoder
+    params: nn.Module  # the Decoder, or {'decoder', 'crepe'} when finetuning
     opt_state: OptState
     rng: torch.Tensor  # (2,) int64 threefry key (uint32 words)
 
@@ -203,45 +213,61 @@ def init_state(key: torch.Tensor, conf: Config, device="cuda") -> TrainState:
     return TrainState(0, params, opt_state, kr.to(dev))
 
 
+def loss_matmul_dtype(conf: Config) -> Optional[torch.dtype]:
+    """``conf.loss_matmul_dtype`` as the losses take it: None for
+    'float32', else the torch dtype of that name (``trainer.py:89-93``)."""
+    if conf.loss_matmul_dtype == "float32":
+        return None
+    return getattr(torch, conf.loss_matmul_dtype)
+
+
 def loss_fn(
-    params: Decoder,
+    params: nn.Module,
     batch: Dict[str, torch.Tensor],
     conf: Config,
     noise_key: torch.Tensor,
+    decode=decoder_apply,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """MSS reconstruction loss of the decoded controls vs the target audio.
 
-    If the batch carries precomputed target spectrograms
-    (``losses.target_spectrograms`` keys), the target-side STFTs are
-    skipped.
+    ``decode`` swaps the decode implementation while keeping the loss
+    composition single-sourced.  If the batch carries precomputed target
+    spectrograms (``losses.target_spectrograms`` keys), the target-side
+    STFTs are skipped.
     """
-    pred = decoder_apply(params, batch, conf, noise_key)
+    pred = decode(params, batch, conf, noise_key)
+    dtype = loss_matmul_dtype(conf)
     with record_function("loss"):
         if target_mag_key(conf.mss_ffts[0]) in batch:
             scales = mss_loss_per_scale_cached(
-                pred, batch, conf.mss_ffts, conf.mss_alpha, conf.mss_overlap
+                pred, batch, conf.mss_ffts, conf.mss_alpha, conf.mss_overlap,
+                matmul_dtype=dtype,
             )
         else:
             scales = mss_loss_per_scale(
-                pred, batch["audio"], conf.mss_ffts, conf.mss_alpha, conf.mss_overlap
+                pred, batch["audio"], conf.mss_ffts, conf.mss_alpha, conf.mss_overlap,
+                matmul_dtype=dtype,
             )
         loss = sum(scales.values())
     return loss, scales
 
 
-def make_train_step(conf: Config):
+def make_train_step(conf: Config, loss=None):
     """(state, batch) -> (state, metrics): one optimizer step.
 
+    ``loss`` defaults to :func:`loss_fn`; the finetune step passes
+    :func:`loss_fn_e2e` and reuses this optimizer and metrics plumbing.
     ``metrics`` holds ``loss``, the per-scale ``mss_*`` terms and
     ``grad_norm``, as device tensors.  The parameters are updated in
     place; the returned state carries step + 1 and the advanced key.
     """
     opt = make_optimizer(conf)
+    loss = loss_fn if loss is None else loss
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         rng, noise_key = split(state.rng)
         params = list(state.params.parameters())
-        loss_val, scales = loss_fn(state.params, batch, conf, noise_key)
+        loss_val, scales = loss(state.params, batch, conf, noise_key)
         with record_function("backward"):
             grads = torch.autograd.grad(loss_val, params, allow_unused=True)
             grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
@@ -253,6 +279,119 @@ def make_train_step(conf: Config):
         return TrainState(state.step + 1, state.params, opt_state, rng), metrics
 
     return train_step
+
+
+def loss_fn_e2e(
+    params: nn.Module,
+    batch: Dict[str, torch.Tensor],
+    conf: Config,
+    noise_key: torch.Tensor,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Analysis-by-synthesis loss: audio -> encoder (CREPE differentiable)
+    -> decoder -> MSS vs the same audio.  ``params`` is ``{'decoder',
+    'crepe'}``; ``batch`` needs only 'audio'."""
+    pred = autoencoder_apply(params, batch["audio"], conf, noise_key, freeze_crepe=False)
+    with record_function("loss"):
+        scales = mss_loss_per_scale(
+            pred, batch["audio"], conf.mss_ffts, conf.mss_alpha, conf.mss_overlap,
+            matmul_dtype=loss_matmul_dtype(conf),
+        )
+        loss = sum(scales.values())
+    return loss, scales
+
+
+def _finetune_state(params: nn.ModuleDict, conf: Config, rng: torch.Tensor,
+                    device: torch.device) -> TrainState:
+    make_statistics_trainable(params["crepe"])
+    params = params.to(device)
+    return TrainState(0, params, make_optimizer(conf).init(list(params.parameters())),
+                      rng.to(device))
+
+
+def init_finetune_state(
+    key: torch.Tensor, conf: Config, crepe_checkpoint: Optional[str] = None,
+    device="cuda",
+) -> TrainState:
+    """A fresh finetune state over ``{'decoder', 'crepe'}`` from a (2,)
+    threefry key (``kp, kr = split(key)``, as the JAX package).
+
+    CREPE's BatchNorm ``running_mean`` / ``running_var`` become optimised
+    parameters (``models/crepe.py:make_statistics_trainable``): the JAX
+    package keeps them in its parameter tree, so its finetune step takes
+    their gradients, moves them with Adam and counts them in
+    ``grad_norm``.  ``num_batches_tracked`` stays out, as there.
+    """
+    dev = resolve_device(device)
+    kp, kr = split(key.cpu())
+    return _finetune_state(autoencoder_init(kp, conf, crepe_checkpoint), conf, kr, dev)
+
+
+def make_finetune_step(conf: Config):
+    """Analysis-by-synthesis train step: CREPE finetunes with the decoder.
+
+    Needs a differentiable pitch decode: 'argmax' emits hard bins (zero
+    gradient into CREPE), so ``conf.pitch_decode`` must be 'weighted' or
+    'centered_ref'.  The step's state is a finetune state
+    (:func:`init_finetune_state`), BatchNorm statistics among its leaves.
+    """
+    if conf.pitch_decode == "argmax":
+        raise ValueError(
+            "analysis-by-synthesis finetuning needs a differentiable pitch "
+            "decode: set pitch_decode='weighted' (or 'centered_ref'); "
+            "'argmax' passes zero gradient into CREPE"
+        )
+    return make_train_step(conf, loss=loss_fn_e2e)
+
+
+def finetune(
+    conf: Config,
+    audio: np.ndarray,
+    num_steps: int,
+    decoder_params: nn.Module,
+    crepe_params: nn.Module,
+    log_path: Optional[str] = None,
+    seed: Optional[int] = None,
+    device="cuda",
+) -> Tuple[TrainState, Dict[str, float]]:
+    """Analysis-by-synthesis finetune loop over raw (N, L) audio examples.
+
+    Starts from copies of the trained decoder and the CREPE weights (the
+    caller's modules are not changed, as JAX's arrays are not) and
+    optimises both through the encoder, BatchNorm statistics included
+    (:func:`init_finetune_state`).  Logs every ``conf.log_every`` steps
+    and at the last.  Returns the final state (``state.params['crepe']``
+    holds the finetuned CREPE) and the last logged metrics.
+    """
+    from ddsp_tpu_torch.data.dataset import batch_iterator
+
+    dev = resolve_device(device)
+    if len(audio) < conf.batch_size:
+        raise ValueError(
+            f"{len(audio)} examples make no full batch of {conf.batch_size}")
+    step_fn = make_finetune_step(conf)
+    seed = conf.seed if seed is None else seed
+    key, kr = split(PRNGKey(seed))
+    params = nn.ModuleDict({"decoder": copy.deepcopy(decoder_params),
+                            "crepe": copy.deepcopy(crepe_params)})
+    state = _finetune_state(params, conf, kr, dev)
+    order = torch.Generator().manual_seed(seed)
+    logger = MetricsLogger(log_path)
+    last: Dict[str, float] = {}
+    steps_done = 0
+    t0 = time.time()
+    while steps_done < num_steps:
+        key, _ = split(key)
+        for batch in batch_iterator({"audio": audio}, conf.batch_size, order, device=dev):
+            state, metrics = step_fn(state, batch)
+            steps_done += 1
+            if steps_done % conf.log_every == 0 or steps_done == num_steps:
+                last = {k: float(v) for k, v in metrics.items()}
+                last["steps_per_s"] = steps_done / (time.time() - t0)
+                logger.log(int(state.step), last)
+            if steps_done >= num_steps:
+                break
+    logger.close()
+    return state, last
 
 
 def make_eval_step(conf: Config):
@@ -418,8 +557,9 @@ def load_checkpoint_payload(path: str) -> Dict[str, Any]:
 
 
 def restore_checkpoint(path: str, template: TrainState) -> TrainState:
-    """Load a checkpoint into ``template``'s decoder (in place) and rebuild
-    the optimizer state on its device."""
+    """Load a checkpoint into ``template``'s parameters (in place) and
+    rebuild the optimizer state on its device.  A finetune checkpoint
+    needs a finetune template (:func:`init_finetune_state`)."""
     payload = load_checkpoint_payload(path)
     device = template.rng.device
     template.params.load_state_dict(payload["params"])
@@ -551,10 +691,11 @@ def _maybe_cache_target_spectra(conf: Config, audio: torch.Tensor) -> Dict[str, 
     if n * bins * 4 > _SPECTRA_CACHE_BYTES:
         return {}
     bs = max(1, conf.batch_size)
+    dtype = loss_matmul_dtype(conf)
     outs: Dict[str, list] = {}
     for s in range(0, n, bs):
         for k, v in target_spectrograms(audio[s : s + bs], conf.mss_ffts,
-                                        conf.mss_overlap).items():
+                                        conf.mss_overlap, dtype).items():
             outs.setdefault(k, []).append(v)
     return {k: torch.cat(v, dim=0) for k, v in outs.items()}
 

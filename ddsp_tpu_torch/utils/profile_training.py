@@ -1,10 +1,17 @@
 """Where a train step's time goes on the GPU.
 
     python -m ddsp_tpu_torch.utils.profile_training [--steps=10]
-        [--batch_size=16] [--out=FILE.json]
+        [--batch_size=16] [--stft_impl=auto|pallas] [--finetune]
+        [--out=FILE.json]
 
 At the full default ``Config()`` width with seeded random weights and a
-seeded random feature batch (as ``chip_smoke.py`` drives it):
+seeded random feature batch (as ``chip_smoke.py`` drives it), one decoder
+train step (``make_train_step``) or, with ``--finetune``, one
+analysis-by-synthesis finetune step (``make_finetune_step`` with
+``pitch_decode='weighted'``, CREPE and the decoder from
+``init_finetune_state``, the batch's audio only).  ``--stft_impl`` sets
+``ops/spectral.set_stft_impl`` first: 'pallas' puts the loss spectrograms
+on the power-STFT kernels (the default bf16 ``loss_matmul_dtype``).
 
 * ``wall_ms_median``: median host time of one ``make_train_step`` call
   ended by ``torch.cuda.synchronize()`` (what a training loop that reads
@@ -14,9 +21,10 @@ seeded random feature batch (as ``chip_smoke.py`` drives it):
   share) and the launches per step are read;
 * a second window with a ``synchronize()`` after each step, in which every
   device operation (kernel, copy or fill) is attributed to the labelled
-  range (``controller``, ``oscillator_bank``, ``filtered_noise``,
-  ``reverb``, ``loss``, ``backward``, ``optimizer``;
-  ``models/controller.py`` and ``training/trainer.py``) whose host
+  range (``encoder`` when finetuning, ``controller``, ``oscillator_bank``,
+  ``filtered_noise``, ``reverb``, ``loss``, ``backward``, ``optimizer``;
+  ``models/autoencoder.py``, ``models/controller.py`` and
+  ``training/trainer.py``) whose host
   interval holds the CUDA runtime call that launched it, matched by
   correlation id.  Attribution goes by the launch's time and not by the
   profiler's call tree because the backward runs on autograd's device
@@ -24,7 +32,8 @@ seeded random feature batch (as ``chip_smoke.py`` drives it):
   kernels have no operator above them; operations launched outside every
   range (the key split) are ``other``.
 
-Also: the frame kernels' launches per step from their own counters.
+Also: the frame and STFT kernels' launches per step from their own
+counters.
 Prints one JSON line and, given ``--out``, writes it to that file.
 Needs a CUDA device.
 """
@@ -42,8 +51,8 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
-STAGES = ("controller", "oscillator_bank", "filtered_noise", "reverb", "loss",
-          "backward", "optimizer")
+STAGES = ("encoder", "controller", "oscillator_bank", "filtered_noise", "reverb",
+          "loss", "backward", "optimizer")
 
 
 def _batch(conf, seed: int, device):
@@ -70,30 +79,49 @@ def _device_ops(prof):
     return events, ops, launches
 
 
-def profile(steps: int, batch_size: int, seed: int = 0) -> dict:
+def _counts():
+    from ddsp_tpu_torch.ops.cuda import osc_frames, stft
+
+    return {
+        "osc_frames_fwd": osc_frames.FWD_LAUNCHES,
+        "osc_frames_bwd": osc_frames.BWD_LAUNCHES,
+        "stft_power_fwd": stft.FWD_LAUNCHES,
+        "stft_power_bwd": stft.BWD_LAUNCHES,
+    }
+
+
+def profile(steps: int, batch_size: int, seed: int = 0, stft_impl: str = "auto",
+            finetune: bool = False) -> dict:
     from ddsp_tpu_torch.config import Config
     from ddsp_tpu_torch.device import resolve_device
-    from ddsp_tpu_torch.ops.cuda import osc_frames
+    from ddsp_tpu_torch.ops.spectral import set_stft_impl
     from ddsp_tpu_torch.training import trainer
 
     device = resolve_device("cuda")
-    conf = Config(batch_size=batch_size)
-    state = trainer.init_state(torch.tensor([0, seed], dtype=torch.int64), conf, device)
-    step = trainer.make_train_step(conf)
-    batch = _batch(conf, seed, device)
+    set_stft_impl(stft_impl)
+    key = torch.tensor([0, seed], dtype=torch.int64)
+    batch = _batch(Config(batch_size=batch_size), seed, device)
+    if finetune:
+        conf = Config(batch_size=batch_size, pitch_decode="weighted")
+        state = trainer.init_finetune_state(key, conf, device=device)
+        step = trainer.make_finetune_step(conf)
+        batch = {"audio": batch["audio"]}
+    else:
+        conf = Config(batch_size=batch_size)
+        state = trainer.init_state(key, conf, device)
+        step = trainer.make_train_step(conf)
     for _ in range(3):  # warm-up: cuFFT plans, cuDNN, the kernels' build
         state, metrics = step(state, batch)
     torch.cuda.synchronize()
 
     wall = []
-    fwd0, bwd0 = osc_frames.FWD_LAUNCHES, osc_frames.BWD_LAUNCHES
+    before = _counts()
     for _ in range(steps):
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         wall.append(1e3 * (time.perf_counter() - t0))
-    fwd = (osc_frames.FWD_LAUNCHES - fwd0) / steps
-    bwd = (osc_frames.BWD_LAUNCHES - bwd0) / steps
+    per_step = {f"{k}_launches_per_step": (v - before[k]) / steps for k, v in _counts().items()}
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
@@ -134,6 +162,8 @@ def profile(steps: int, batch_size: int, seed: int = 0) -> dict:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     ms = statistics.median(wall)
     return {
+        "step": "finetune" if finetune else "decoder",
+        "stft_impl": stft_impl,
         "batch_size": batch_size,
         "steps": steps,
         "loss": float(metrics["loss"]),
@@ -144,8 +174,7 @@ def profile(steps: int, batch_size: int, seed: int = 0) -> dict:
         "device_idle_share": 1.0 - busy_ms / window_ms,
         "kernels_per_step": len(ops) / steps,
         "unattributed_launches": unmatched,
-        "osc_frames_fwd_launches_per_step": fwd,
-        "osc_frames_bwd_launches_per_step": bwd,
+        **per_step,
         "stages": stages,
         "top_kernels_ms_per_step": {
             f"{stage}: {name[:72]}": 1e-6 * ns / steps for (stage, name), ns in top
@@ -155,7 +184,10 @@ def profile(steps: int, batch_size: int, seed: int = 0) -> dict:
 
 
 def main(argv=None) -> int:
-    args = dict(a[2:].split("=", 1) for a in (sys.argv[1:] if argv is None else argv))
+    args = {}
+    for a in sys.argv[1:] if argv is None else argv:
+        key, _, value = a[2:].partition("=")
+        args[key] = value or "1"
     if not torch.cuda.is_available():
         print("profile_training: needs a CUDA device", file=sys.stderr)
         return 2
@@ -163,7 +195,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.splitlines()[0]
-    result = profile(int(args.get("steps", "10")), int(args.get("batch_size", "16")))
+    result = profile(int(args.get("steps", "10")), int(args.get("batch_size", "16")),
+                     stft_impl=args.get("stft_impl", "auto"),
+                     finetune=args.get("finetune", "0") != "0")
     result["card"] = card
     print(json.dumps(result), flush=True)
     out = args.get("out")

@@ -35,6 +35,8 @@ TRAINING_MODULES = (
     "ddsp_tpu_torch.models.autoencoder", "ddsp_tpu_torch.ops.cuda.build",
     "ddsp_tpu_torch.ops.cuda.osc_frames", "ddsp_tpu_torch.training.trainer",
     "ddsp_tpu_torch.training.train", "ddsp_tpu_torch.utils.profile_training",
+    "ddsp_tpu_torch.ops.cuda.stft", "ddsp_tpu_torch.ops.spectral",
+    "ddsp_tpu_torch.models.convert",
 )
 
 
@@ -120,6 +122,7 @@ def _features(conf, n=4):
 @pytest.mark.parametrize("entry", [
     "multistream", "stream_server", "cli",
     "fit", "init_state", "extract_features", "train_cli",
+    "finetune", "init_finetune_state", "finetune_cli",
 ])
 def test_entry_points_raise_without_cuda(no_cuda, entry, tmp_path):
     params, crepe = decoder_init(CONF), crepe_init()
@@ -136,6 +139,14 @@ def test_entry_points_raise_without_cuda(no_cuda, entry, tmp_path):
             trainer.init_state(PRNGKey(0), CONF)
         elif entry == "extract_features":
             dataset.extract_features(crepe, CONF, examples=_features(CONF)["audio"])
+        elif entry == "finetune":
+            trainer.finetune(CONF.replace(pitch_decode="weighted"), _features(CONF)["audio"],
+                             1, params, crepe)
+        elif entry == "init_finetune_state":
+            trainer.init_finetune_state(PRNGKey(0), CONF)
+        elif entry == "finetune_cli":
+            train.main([f"--data_dir={tmp_path}", "--num_steps=1", "--finetune_crepe=1",
+                        "--pitch_decode=weighted"])
         else:
             train.main([f"--data_dir={tmp_path}", "--num_steps=1"])
 
@@ -152,3 +163,9 @@ def test_explicit_cpu_runs(no_cuda):
     state, metrics = trainer.fit(conf, _features(conf), num_steps=1, state=state,
                                  device="cpu")
     assert state.step == 1 and np.isfinite(metrics["loss"])
+    conf = conf.replace(pitch_decode="weighted")
+    ft = trainer.init_finetune_state(PRNGKey(0), conf, device="cpu")
+    assert ft.rng.device.type == "cpu"
+    ft, metrics = trainer.finetune(conf, _features(conf)["audio"], 1, ft.params["decoder"],
+                                   ft.params["crepe"], device="cpu")
+    assert ft.step == 1 and np.isfinite(metrics["loss"])

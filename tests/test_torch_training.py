@@ -14,6 +14,10 @@ Tolerances, each with its reason:
   order; ~1e-6 and ~1e-5 measured), parameters after each step at
   ``allclose(rtol=2e-3, atol=3e-3)``, the repo's criterion for the same
   step on another layout (``__graft_entry__.py:48-64``).
+* the same three steps with ``loss_matmul_dtype`` bf16 on the power-STFT
+  route (``set_stft_impl('pallas')`` on both sides): the same criterion
+  (K4's bf16 casts round the same values in both packages; measured in
+  the test's docstring).
 * the plateau schedule: equal to optax's ``reduce_on_plateau`` state,
   step for step.
 """
@@ -324,8 +328,74 @@ def test_train_cli_on_wav_files(tmp_path):
     rows = [json.loads(line) for line in open(ckpt / "metrics.jsonl")]
     assert rows[-1]["step"] == 4 and np.isfinite(rows[-1]["loss"])
     assert trainer.latest_checkpoint(str(ckpt)).endswith("step_00000004")
-    with pytest.raises(NotImplementedError, match="finetune slice"):
-        main([f"--data_dir={data}", "--finetune_crepe=5", "--device=cpu"])
+
+    # then CREPE finetuning: its metrics, and a checkpoint that a finetune
+    # template restores, BatchNorm statistics included
+    ft_ckpt = tmp_path / "ft_ckpt"
+    state = main(flags + [f"--data_dir={data}", f"--checkpoint_dir={ft_ckpt}", "--num_steps=2",
+                          "--device_steps=2", "--finetune_crepe=2", "--pitch_decode=weighted",
+                          "--batch_size=2", "--log_every=1", "--device=cpu"])
+    rows = [json.loads(line) for line in open(ft_ckpt / "finetune_metrics.jsonl")]
+    assert [r["step"] for r in rows] == [1, 2]
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows)
+    latest = trainer.latest_checkpoint(str(ft_ckpt / "finetune"))
+    assert latest.endswith("step_00000002") and state.step == 2
+    template = trainer.init_finetune_state(
+        PRNGKey(9), CONF.replace(pitch_decode="weighted", batch_size=2), device="cpu")
+    restored = trainer.restore_checkpoint(latest, template)
+    _params_equal(restored.params, state.params)
+    assert "crepe.conv6_BN.running_var" in dict(restored.params.named_parameters())
+    for a, b in zip(restored.opt_state.adam.nu, state.opt_state.adam.nu):
+        assert torch.equal(a, b)
+
+    # 'argmax' passes no gradient into CREPE: refused before any training
+    before = (ckpt / "metrics.jsonl").read_text()
+    with pytest.raises(ValueError, match="differentiable"):
+        main(flags + [f"--data_dir={data}", f"--checkpoint_dir={ckpt}", "--num_steps=4",
+                      "--finetune_crepe=5", "--device=cpu"])
+    assert (ckpt / "metrics.jsonl").read_text() == before
+
+
+def test_three_bf16_kernel_route_train_steps_match_jax():
+    """``loss_matmul_dtype`` bf16 under ``set_stft_impl('pallas')`` on both
+    sides: the decoder step's loss spectrograms on the power-STFT route
+    (the plain versions of K3/K4 here, JAX's kernels in the Pallas
+    interpreter), at the three-step criterion above."""
+    import jax
+
+    from ddsp_tpu.config import Config as JaxConfig
+    from ddsp_tpu.ops import spectral as jax_spectral
+    from ddsp_tpu.training import trainer as jax_trainer
+    from ddsp_tpu_torch.ops.spectral import set_stft_impl
+
+    kw = dict(TINY, reverb_length=1024, loss_matmul_dtype="bfloat16")
+    jconf = JaxConfig(**kw, reverb_grad_matmul_dtype="float32", osc_impl="xla")
+    conf = Config(**kw)
+    jstate = jax_trainer.init_state(jax.random.PRNGKey(0), jconf)
+    decoder = decoder_from_jax(jax.tree_util.tree_map(np.asarray, jstate.params), conf)
+    state = trainer.TrainState(
+        0, decoder, trainer.make_optimizer(conf).init(list(decoder.parameters())),
+        torch.from_numpy(np.asarray(jstate.rng).astype(np.int64)),
+    )
+    batch = _batch(conf, conf.batch_size)
+    jax_spectral.set_stft_impl("pallas")
+    set_stft_impl("pallas")
+    try:
+        jstep = jax.jit(jax_trainer.make_train_step(jconf))
+        step = trainer.make_train_step(conf)
+        for i in range(3):
+            jstate, jm = jstep(jstate, batch)
+            state, m = step(state, _tensors(batch))
+            for name, rtol in (("loss", 1e-4), ("grad_norm", 1e-3)):
+                want, got = float(jm[name]), float(m[name])
+                assert abs(got - want) <= rtol * abs(want), (i, name, got, want)
+            jax.tree_util.tree_map(
+                lambda a, b: np.testing.assert_allclose(b, np.asarray(a), rtol=2e-3, atol=3e-3),
+                jstate.params, decoder_to_jax(state.params),
+            )
+    finally:
+        jax_spectral.set_stft_impl("auto")
+        set_stft_impl("auto")
 
 
 def test_server_serves_what_the_port_trained(tmp_path):
