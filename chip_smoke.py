@@ -65,6 +65,27 @@ Phases, each of which must pass (any failure exits non-zero):
    statistics included; median ms per finetune step, and per decoder step
    on 'pallas' beside 'auto' (alternating in this call), are printed.
    The STFT route is reset to 'auto' afterwards, whatever happens.
+11. the oscillator's variant kernels through the port of the oscillator
+   sweeps (``ddsp_tpu_torch.utils.osc_sweep``: the counterparts of
+   ``_pallas_forward`` / ``_pallas_backward``) at the training shape and
+   the ragged one (h_start 8; 0 for K7, which has none): K7
+   (``osc_cheb_fwd``), K6 (``osc_banked_bwd``), S2 (``osc_fill_only``),
+   every K8 option set of K1/K2 (``osc_frames_fwd[...]`` /
+   ``osc_frames_bwd[...]``) and K5 over frame rows with h_start.  Each is
+   held against its plain version (float32 forward > 90 dB, gradients > 80
+   dB, bf16 > 60 dB) and against a float64 oracle on two batch rows
+   (float32 at the same floors; bf16 and K6 > 45 dB with cosine > 0.9999;
+   K7 > 90 dB at its default resync 32, the other cadences recorded), K6
+   against K2 at the bf16 floor; backward reruns bit-equal; S2's bank
+   stores present in its SASS; kernel, plain version and bound timed; the
+   launches of every kernel equal to the count the sweep implies.
+12. one full-width train step at batch 2 under
+   ``set_osc_bwd_contract_dtype('bfloat16')``, card vs CPU (the plain
+   backward with the same casts) from the same weights, batch and key:
+   phase 9's bf16 criterion (each gradient leaf within 5e-3 of its norm
+   plus 1e-6 of the total, grad_norm 1e-3, loss as phase 6); the bf16 K2
+   launches once for the gradients and once in the step.  The setting is
+   reset to None afterwards, whatever happens.
 
 The line before the last is a JSON object describing each kernel (launches
 on its main path, agreement with its plain version, kernel, plain, bound
@@ -98,16 +119,27 @@ SLOT_ATOL = 1e-5  # slot vs lone stream (the JAX contract's tolerance)
 # cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-# Cheapest known evaluation of one (sample, harmonic) point: rotate the
-# harmonic's (sin, cos) by the fundamental's rotor (4 FMA-pipe
-# instructions), three window multiply-adds, and the exact re-seed every
-# 8 harmonics amortised (~2): 9 FMAs, 18 FLOP.
-FLOP_PER_POINT = 18
+# Cheapest known evaluation of one (sample, harmonic) point, counted from
+# K7 (csrc/osc_cheb.cu), which holds > 90 dB against float64 at full width
+# (phase 11): the recurrence (one multiply, one subtract), two window
+# multiply-adds (hop % 256 == 0), and two exact sines every 32 harmonics,
+# each ~24 FLOP (the split phase's 7 operations, sinf's reduction and
+# polynomial): 2 + 4 + 48/32 = 7.5 FLOP.  The bound of K1, K5 and K7.
+FLOP_PER_POINT = 7.5
 # The frame backward per point: the (sin, cos) rotation, the seed
 # amortised, and three window sums each for harm, the phase derivative
 # and the window-amplitude gradient: 14 FMAs, 28 FLOP.
 FLOP_PER_POINT_BWD = 28
 GRAD_SNR_FLOOR_DB = 80.0
+# K6 and S2 per point: the rotation of a (sine, cosine) pair (4 multiplies,
+# 2 adds) and its exact seeds amortised (~1.5 FLOP) at the fp32 peak; K6's
+# three contractions, 2 FLOP x 3 windows each, at the bf16 dense peak.
+FILL_FLOP_PER_POINT = 7.5
+K6_MMA_FLOP_PER_POINT = 18
+# Phase 11: bf16 variants against their plain versions, and against the
+# float64 oracle (one bf16 pass measures ~54 dB, docs/PERFORMANCE.md:425).
+BF16_PLAIN_FLOOR_DB, BF16_F64_FLOOR_DB, BF16_COS = 60.0, 45.0, 0.9999
+VARIANT_ITERS = 20
 FRAME_SHAPES = ((16, 172, 512, 180, 0), (2, 18, 128, 40, 8))  # B, T, hop, H, h_start
 TRAIN_STEPS, TRAIN_WINDOW = 30, 10
 PARAM_RTOL, PARAM_ATOL = 2e-3, 3e-3  # __graft_entry__.py's one-step criterion
@@ -1099,6 +1131,215 @@ def decoder_step_ms(device, order, steps: int = 5):
     return times
 
 
+# --------------------------------------------------------------- phase 11
+
+
+def variant_bound_ms(kernel: str, b: int, t: int, hop: int, h: int):
+    """(ms, "operations" | "bytes"): K8 variants their base kernel's bound,
+    K7 the forward's, K5 over B*T rows its own, K6 the larger of its fill
+    at the fp32 peak and its contractions at the bf16 peak (or its bytes),
+    S2 its fill (or its bytes)."""
+    (fwd_ms, fwd_by), (bwd_ms, bwd_by) = frame_bounds_ms(b, t, hop, h)
+    if kernel.startswith("osc_frames_fwd") or kernel == "osc_cheb_fwd":
+        return fwd_ms, fwd_by
+    if kernel.startswith("osc_frames_bwd"):
+        return bwd_ms, bwd_by
+    if kernel == "osc_hop_slots":
+        return kernel_bound_ms(b * t, hop, h)
+    points, samples, rows = b * t * hop * h, b * t * hop, b * (t + 2)
+    if kernel == "osc_banked_bwd":
+        n_bytes = 4 * (2 * samples + rows * h + rows + 3 * hop + samples + rows * h + rows)
+        times = {"operations": max(FILL_FLOP_PER_POINT * points / PEAK_FP32_FLOPS,
+                                   K6_MMA_FLOP_PER_POINT * points / PEAK_BF16_FLOPS)}
+    else:  # osc_fill_only: phase, amps in; dphase, the windows' copies, zeros out
+        n_bytes = 4 * (samples + rows * h + samples + 3 * b * t * h + 3 * b * t)
+        times = {"operations": FILL_FLOP_PER_POINT * points / PEAK_FP32_FLOPS}
+    times["bytes"] = n_bytes / PEAK_BYTES_PER_S
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
+def check_variant_row(row, shape: str) -> None:
+    """Phase 11's floors for one sweep row (see the module docstring)."""
+    what = f"{row['label']} ({row['kernel']}) at {shape}"
+    require(row["finite"], f"{what}: not finite")
+    require(row["launches"] == row["expected_launches"],
+            f"{what}: {row['launches']} launches, the sweep implies {row['expected_launches']}")
+    bwd = isinstance(row["db_plain"], dict)
+    plain = row["db_plain"] if bwd else {"out": row["db_plain"]}
+    f64 = row["db_f64"] if bwd else {"out": row["db_f64"]}
+    cos = row["cos_f64"] if bwd else {"out": row["cos_f64"]}
+    f32_floor = GRAD_SNR_FLOOR_DB if bwd else KERNEL_SNR_FLOOR_DB
+    for k, v in plain.items():
+        floor = BF16_PLAIN_FLOOR_DB if row["bf16"] else f32_floor
+        require(v > floor, f"{what}: {k} vs plain {v:.2f} dB <= {floor}")
+    cadence = row["options"].get("resync", 32) if row["kernel"] == "osc_cheb_fwd" else 32
+    if cadence == 32:  # K7's other cadences are recorded, not held
+        for k, v in f64.items():
+            if row["bf16"]:
+                require(v > BF16_F64_FLOOR_DB and cos[k] > BF16_COS,
+                        f"{what}: {k} vs float64 {v:.2f} dB, cosine {cos[k]:.8f}")
+            else:
+                require(v > f32_floor, f"{what}: {k} vs float64 {v:.2f} dB <= {f32_floor}")
+    if bwd:
+        require(row["bit_equal"], f"{what}: two backward runs differ")
+    if row["kernel"] == "osc_banked_bwd":
+        for k, v in row["db_k2"].items():
+            require(v > BF16_F64_FLOOR_DB and row["cos_k2"][k] > BF16_COS,
+                    f"{what}: {k} vs K2 {v:.2f} dB, cosine {row['cos_k2'][k]:.8f}")
+    if row["kernel"] == "osc_fill_only":
+        require(row["copies_equal"], f"{what}: the amplitude copies differ")
+
+
+def sass_counts(lib, kernel: str):
+    """(STS, HMMA) instruction counts of ``kernel`` in ``lib``'s SASS."""
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib)],
+                         capture_output=True, text=True, check=True).stdout
+    sections = [sec for sec in out.split("Function : ")[1:] if kernel in sec.split("\n")[0]]
+    require(len(sections) == 1, f"{kernel} not found once in the SASS of {lib}")
+    return len(re.findall(r"\bSTS\b", sections[0])), len(re.findall(r"\bHMMA\b", sections[0]))
+
+
+def phase_variants(device):
+    """The sweep's forward, backward, resync and ablation runs at the
+    training and ragged shapes; returns the JSON entries of the kernels
+    and the K8 variants, with this phase's launches."""
+    import collections
+
+    from ddsp_tpu_torch.ops.cuda import build
+    from ddsp_tpu_torch.utils import osc_sweep
+
+    fill_sts, fill_mma = sass_counts(build.build("osc_banked_bwd"), "osc_fill_only_kernel")
+    k6_sts, k6_mma = sass_counts(build.build("osc_banked_bwd"), "osc_banked_bwd_kernel")
+    log(f"[variants] SASS: osc_fill_only_kernel {fill_sts} STS (bank stores), {fill_mma} HMMA; "
+        f"osc_banked_bwd_kernel {k6_sts} STS, {k6_mma} HMMA")
+    require(fill_sts > 0 and fill_mma == 0 and k6_mma > 0,
+            "S2 lost its bank stores, or K6 its tensor-core products")
+    osc_sweep.reset_launches()  # the main path of this phase from here
+    implied = collections.Counter()
+    entries = {}
+    t0 = time.perf_counter()
+    for b, t, hop, h, h_start in FRAME_SHAPES:
+        shape = f"B={b} T={t} hop={hop} H={h} h_start={h_start}"
+        dims = (b, t, hop, h)
+        rows = (osc_sweep.sweep_fwd(device, dims, h_start, VARIANT_ITERS)
+                + osc_sweep.sweep_bwd(device, dims, h_start, VARIANT_ITERS)
+                + osc_sweep.sweep_resync(device, dims, VARIANT_ITERS)
+                + osc_sweep.sweep_ablate(device, dims, VARIANT_ITERS))
+        for row in rows:
+            implied[row["kernel"]] += row["expected_launches"]
+            if row.get("reference"):
+                continue
+            check_variant_row(row, shape)
+            bound_ms, bound_by = variant_bound_ms(row["kernel"], b, t, hop, h)
+            db = row["db_plain"]
+            db = min(db.values()) if isinstance(db, dict) else db
+            f64 = row["db_f64"]
+            f64 = min(f64.values()) if isinstance(f64, dict) else f64
+            log(f"[variants] {shape} {row['label']:34s} {row['kernel']}: kernel "
+                f"{row['ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, bound {bound_ms:.5f} ms "
+                f"({bound_by}); vs plain {db:.2f} dB, vs float64 {f64:.2f} dB"
+                + (f", vs K2 {min(row['db_k2'].values()):.2f} dB" if "db_k2" in row else "")
+                + (f"; K6 {row['full_ms']:.5f} ms" if "full_ms" in row else ""))
+            key = row["kernel"] + ("" if row["kernel"] != "osc_cheb_fwd"
+                                   or row["options"].get("resync", 32) == 32
+                                   else f"[resync={row['options']['resync']}]")
+            if (b, t, hop, h, h_start) == FRAME_SHAPES[0] and key not in entries:
+                entries[key] = dict(
+                    snr_db=db, snr_f64_db=f64, max_abs_err=row["max_abs_err"], ms=row["ms"],
+                    plain_ms=row["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+                    sweep_label=row["label"], options=row["options"])
+    for name, n in sorted(implied.items()):
+        got = osc_sweep.launches(name)
+        require(got == n, f"{name} launched {got} times in phase 11, the sweep implies {n}")
+    log(f"[variants] launches (all equal to the sweep's count): "
+        + ", ".join(f"{k} {osc_sweep.launches(k)}" for k in sorted(implied))
+        + f"; {time.perf_counter() - t0:.1f} s")
+    for key, entry in entries.items():
+        entry["launches"] = osc_sweep.launches(key.split("[resync=")[0])
+    return entries
+
+
+# --------------------------------------------------------------- phase 12
+
+
+def phase_contract_step(device):
+    """One full-width train step under the bf16 backward contraction, card
+    vs CPU, gradients leaf by leaf; returns the bf16 K2's launches."""
+    import copy
+
+    import torch
+
+    from ddsp_tpu_torch.config import Config
+    from ddsp_tpu_torch.models.controller import decoder_init
+    from ddsp_tpu_torch.ops.cuda import osc_frames
+    from ddsp_tpu_torch.ops.fir import PRNGKey
+    from ddsp_tpu_torch.training import trainer
+
+    conf = Config(batch_size=2)
+    batch = feature_batch(conf, conf.batch_size, SEED + 3)
+    decoder = decoder_init(conf, seed=SEED)
+    k2_bf16 = osc_frames.variant_name("osc_frames_bwd", bf16=True)
+    out = {}
+    osc_frames.set_osc_bwd_contract_dtype("bfloat16")
+    try:
+        for dev in (device, torch.device("cpu")):
+            params = copy.deepcopy(decoder).to(dev)
+            on_dev = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            osc_frames.VARIANT_LAUNCHES.clear()
+            grads = step_gradients(params, on_dev, conf, PRNGKey(SEED, dev))
+            grad_launches = dict(osc_frames.VARIANT_LAUNCHES)
+            state = trainer.TrainState(0, params, trainer.make_optimizer(conf).init(
+                list(params.parameters())), PRNGKey(SEED, dev))
+            state, metrics = trainer.make_train_step(conf)(state, on_dev)
+            step_launches = osc_frames.VARIANT_LAUNCHES[k2_bf16] - grad_launches.get(k2_bf16, 0)
+            out[dev.type] = (float(metrics["loss"]), float(metrics["grad_norm"]), grads,
+                             grad_launches, step_launches)
+            log(f"[contract-step] {dev}: loss {out[dev.type][0]:.6f}, grad_norm "
+                f"{out[dev.type][1]:.6f}; frame kernel launches for the gradients "
+                f"{grad_launches or 'none'}, bf16 K2 in the step {step_launches}")
+    finally:
+        osc_frames.set_osc_bwd_contract_dtype(None)
+    (l_gpu, n_gpu, g_gpu, launched, in_step), (l_cpu, n_cpu, g_cpu, _, _) = out["cuda"], out["cpu"]
+    require(launched == {"osc_frames_fwd": 1, k2_bf16: 1} and in_step == 1,
+            f"bf16 contraction step: frame kernels launched {launched}, {in_step} in the step")
+    loss_tol = max(LOSS_ATOL, LOSS_RTOL * abs(l_cpu))
+    require(np.isfinite(l_gpu) and abs(l_gpu - l_cpu) < loss_tol,
+            f"bf16 contraction step loss card {l_gpu} vs CPU {l_cpu} (tolerance {loss_tol:.3e})")
+    norm_err = abs(n_gpu - n_cpu) / n_cpu
+    require(np.isfinite(n_gpu) and norm_err <= GRAD_RTOL,
+            f"bf16 contraction step grad_norm {n_gpu} vs {n_cpu}: {norm_err:.3e} > {GRAD_RTOL}")
+    leaf, crit, rel = worst_leaf(g_gpu, g_cpu, FT_GRAD_RTOL)
+    log(f"[contract-step] card vs CPU, {len(g_cpu)} leaves: loss {abs(l_gpu - l_cpu):.3e} apart "
+        f"(< {loss_tol:.3e}), grad_norm {norm_err:.3e} relative; worst leaf {leaf}: |diff| "
+        f"{rel:.3e} of its norm, criterion {crit:.4f} (< 1 passes)")
+    require(crit < 1.0, f"bf16 contraction step gradient of {leaf}: criterion {crit:.4f} >= 1")
+    return {k2_bf16: launched[k2_bf16] + in_step}
+
+
+def timed_phase(phase: int, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] phase {phase}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def finite_json(x):
+    """``x`` with every non-finite float as None: strict JSON.  An SNR of
+    inf (a kernel bit-equal to its plain version) prints as null."""
+    if isinstance(x, float):
+        return x if np.isfinite(x) else None
+    if isinstance(x, dict):
+        return {k: finite_json(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [finite_json(v) for v in x]
+    return x
+
+
 def main() -> int:
     import torch
 
@@ -1118,20 +1359,23 @@ def main() -> int:
 
     from ddsp_tpu_torch.ops.spectral import set_stft_impl
 
-    build_kernels()
+    timed = lambda phase, fn, *args: timed_phase(phase, fn, *args)  # noqa: E731
+    timed(1, build_kernels)
     set_stft_impl("auto")
-    kernel = phase_kernel(device)
-    launches, params, crepe, conf = phase_serving(device)
-    phase_socket(device, params, crepe, conf)
-    frames = phase_frames(device)
-    phase_train_step(device)
-    train_launches, auto_ms = phase_training(device)
+    kernel = timed(2, phase_kernel, device)
+    launches, params, crepe, conf = timed(3, phase_serving, device)
+    timed(4, phase_socket, device, params, crepe, conf)
+    frames = timed(5, phase_frames, device)
+    timed(6, phase_train_step, device)
+    train_launches, auto_ms = timed(7, phase_training, device)
     try:
-        stft_kernels = phase_stft(device)
-        phase_finetune_step(device)
-        ft_launches, _, _ = phase_finetune_cli(device, auto_ms)
+        stft_kernels = timed(8, phase_stft, device)
+        timed(9, phase_finetune_step, device)
+        ft_launches, _, _ = timed(10, phase_finetune_cli, device, auto_ms)
     finally:
         set_stft_impl("auto")
+    variants = timed(11, phase_variants, device)
+    contract_launches = timed(12, phase_contract_step, device)
 
     no_library = ("null: no single PyTorch call computes a harmonic sine-bank render or its "
                   "gradient; the nearest is the plain version")
@@ -1152,9 +1396,29 @@ def main() -> int:
             name=name, route="cuda", source="ddsp_tpu_torch/csrc/stft_power.cu",
             replaces=f"ddsp_tpu/ops/pallas/stft.py:{line}", tpu_function=tpu,
             launches=ft_launches[name], **stft_kernels[name]))
+    osc_tpu = "ddsp_tpu/ops/pallas/oscillator.py"
+    sources = {  # kernel: (source in csrc/, the TPU kernel it replaces, its function)
+        "osc_cheb_fwd": ("osc_cheb.cu", f"{osc_tpu}:317", "_kernel_cheb"),
+        "osc_banked_bwd": ("osc_banked_bwd.cu", f"{osc_tpu}:651", "_kernel_cheb_bwd"),
+        "osc_fill_only": ("osc_banked_bwd.cu", "scripts/bwd_ablation.py:25", "_kernel_fill_only"),
+        "osc_hop_slots": ("osc_hop_slots.cu", f"{osc_tpu}:446", "_kernel_banked"),
+        "osc_frames_fwd": ("osc_frames.cu", f"{osc_tpu}:152", "_kernel_banked2 (K8 options)"),
+        "osc_frames_bwd": ("osc_frames.cu", f"{osc_tpu}:777", "_kernel_banked2_bwd (K8 options)"),
+    }
+    for name, entry in variants.items():
+        if name in ("osc_frames_fwd", "osc_frames_bwd"):
+            continue  # the default K1/K2: their entries above
+        base = name.split("[")[0]
+        src, replaces, tpu = sources[base]
+        kernels.append(dict(
+            name=name if base != "osc_hop_slots" else "osc_hop_slots[frame rows, h_start]",
+            route="cuda", source=f"ddsp_tpu_torch/csrc/{src}", replaces=replaces,
+            tpu_function=tpu, library_ms=None, library=no_library, **entry))
     for k in kernels:
+        if k["name"] in contract_launches:
+            k["launches_contract_step"] = contract_launches[k["name"]]
         k["kernel_ms"] = k["ms"]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": finite_json(kernels)}), flush=True)
     # one card driven, whatever else the host shows
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

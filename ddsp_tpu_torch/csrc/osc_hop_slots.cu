@@ -1,12 +1,15 @@
 // osc_hop_slots: one hop of harmonic audio for each of N serving slots.
 //
 // Replaces ddsp_tpu/ops/pallas/oscillator.py:_kernel_banked, as reached
-// through pallas_render_hop_slots (the multi-stream serving hop).
+// through pallas_render_hop_slots (the multi-stream serving hop) and
+// through _pallas_forward(impl='banked') (offline: one row per frame of the
+// batch, with the harmonic offset h_start, _kernel_banked's h0_ref).
 //
 //   out[n, j] = (sum_k w[j,k] * loud[n,k])
-//             * sum_k w[j,k] * sum_h amps_k[n,h] * sin(2 pi (h+1) phase[n,j])
+//             * sum_k w[j,k] * sum_h amps_k[n,h]
+//                            * sin(2 pi (h_start+h+1) phase[n,j])
 //
-// for k over the slot's (previous, current, next) frames, h over harmonics.
+// for k over the row's (previous, current, next) frames, h over harmonics.
 //
 // What bounds it on an H100: arithmetic.  Each (sample, harmonic) point
 // costs one sine of an exactly reduced harmonic phase plus three window
@@ -44,7 +47,7 @@ osc_hop_slots_kernel(const float* __restrict__ phase,   // (N, hop)
                      const float* __restrict__ loud,    // (N, 3)
                      const float* __restrict__ w,       // (hop, 3)
                      float* __restrict__ out,           // (N, hop)
-                     int hop, int n_harm) {
+                     int hop, int n_harm, int h_start) {
   extern __shared__ float amps[];  // [3][n_harm]: this slot's window rows
   const size_t slot = blockIdx.y;
   const float* rows[3] = {amps_l + slot * n_harm, amps_m + slot * n_harm,
@@ -67,7 +70,7 @@ osc_hop_slots_kernel(const float* __restrict__ phase,   // (N, hop)
 
   float s_l = 0.0f, s_m = 0.0f, s_r = 0.0f;
   for (int i = 0; i < n_harm; ++i) {
-    const float h = static_cast<float>(i + 1);
+    const float h = static_cast<float>(h_start + i + 1);
     const float s = sinf(osc::kTwoPi * osc::harmonic_frac(hi, lo, h));
     s_l = fmaf(a_l[i], s, s_l);
     s_m = fmaf(a_m[i], s, s_m);
@@ -84,16 +87,17 @@ osc_hop_slots_kernel(const float* __restrict__ phase,   // (N, hop)
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).  The
-// caller has checked shapes: n <= 65535 slots, n_harm <= 2048 harmonics.
+// caller has checked shapes: n <= 65535 slots, h_start + n_harm <= 2048.
 extern "C" int osc_hop_slots(const float* phase, const float* amps_l,
                              const float* amps_m, const float* amps_r,
                              const float* loud, const float* w, float* out,
-                             int n, int hop, int n_harm, void* stream) {
+                             int n, int hop, int n_harm, int h_start,
+                             void* stream) {
   if (n == 0 || hop == 0) return 0;
   const dim3 grid((hop + kThreads - 1) / kThreads, n);
   const size_t smem = 3 * static_cast<size_t>(n_harm) * sizeof(float);
   osc_hop_slots_kernel<<<grid, kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      phase, amps_l, amps_m, amps_r, loud, w, out, hop, n_harm);
+      phase, amps_l, amps_m, amps_r, loud, w, out, hop, n_harm, h_start);
   return static_cast<int>(cudaGetLastError());
 }

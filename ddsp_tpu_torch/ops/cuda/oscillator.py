@@ -4,6 +4,9 @@ Counterpart of ``ddsp_tpu/ops/pallas/oscillator.py:pallas_render_hop_slots``
 (kernel ``_kernel_banked``), after the caller's Nyquist normalisation and
 phase stage, without the TPU's padding: N serving slots, each with its own
 (previous, current, next) amplitude and loudness rows, render one hop.
+The offline ``_pallas_forward(impl='banked')`` reaches the same kernel with
+one row per frame of a batch and a harmonic offset ``h_start``
+(``ops/cuda/osc_variants.py``).
 
 * ``osc_hop_slots`` -- the entry.  On CUDA tensors it launches the kernel
   in ``csrc/osc_hop_slots.cu``; on CPU tensors it runs
@@ -30,7 +33,7 @@ LAUNCHES = 0
 MAX_HARMONICS = 2048  # h * (1/4096-grid phase) stays exact in float32
 MAX_SLOTS = 65535  # the kernel's grid.y
 _SIGNATURES = {
-    "osc_hop_slots": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "osc_hop_slots": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 }
 
 
@@ -41,12 +44,13 @@ def render_hop_slots_plain(
     amps_r: torch.Tensor,  # (N, H) next-frame amplitudes
     loud: torch.Tensor,  # (N, 3) loudness of the three frames
     w: torch.Tensor,  # (hop, 3) interpolation weights
+    h_start: int = 0,  # amps[..., i] drives harmonic h_start + i + 1
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: ``render_from_phase_plain`` at T=1.
 
     Materialises the (N, hop, H) sine tensor.  Returns (N, hop).
     """
-    sines = harmonic_sines(phase, amps_l.shape[-1])  # (N, hop, H)
+    sines = harmonic_sines(phase, amps_l.shape[-1], h_start)  # (N, hop, H)
     amp_win = torch.stack([amps_l, amps_m, amps_r], dim=1)  # (N, 3, H)
     s = torch.einsum("njh,nkh->njk", sines, amp_win)
     harm = torch.einsum("njk,jk->nj", s, w)
@@ -58,7 +62,7 @@ def _library() -> ctypes.CDLL:
     return _build.library("osc_hop_slots", _SIGNATURES)
 
 
-def _check(phase, amps_l, amps_m, amps_r, loud, w) -> None:
+def _check(phase, amps_l, amps_m, amps_r, loud, w, h_start) -> None:
     tensors = (phase, amps_l, amps_m, amps_r, loud, w)
     if any(t.requires_grad for t in tensors):
         raise ValueError("osc_hop_slots is forward only: inputs require grad")
@@ -75,8 +79,10 @@ def _check(phase, amps_l, amps_m, amps_r, loud, w) -> None:
             raise ValueError(
                 f"{name} must be {want[name]}, got {tuple(t.shape)}"
             )
-    if not 1 <= h <= MAX_HARMONICS:
-        raise ValueError(f"H={h} outside [1, {MAX_HARMONICS}]")
+    if h < 1 or h_start < 0 or h_start + h > MAX_HARMONICS:
+        raise ValueError(
+            f"harmonics {h_start + 1}..{h_start + h} outside [1, {MAX_HARMONICS}]"
+        )
     if len({t.device for t in tensors}) != 1:
         raise ValueError("osc_hop_slots inputs lie on different devices")
 
@@ -88,16 +94,19 @@ def osc_hop_slots(
     amps_r: torch.Tensor,
     loud: torch.Tensor,
     w: torch.Tensor,
+    h_start: int = 0,
 ) -> torch.Tensor:
     """(N, hop) phase, 3 x (N, H) amps, (N, 3) loudness, (hop, 3) weights
-    -> (N, hop) float32 audio.  CUDA tensors launch the kernel; CPU tensors
-    take :func:`render_hop_slots_plain`; anything else raises."""
+    -> (N, hop) float32 audio; ``amps_*[:, i]`` drives harmonic
+    ``h_start + i + 1``.  CUDA tensors launch the kernel; CPU tensors take
+    :func:`render_hop_slots_plain`; anything else raises."""
     global LAUNCHES
-    _check(phase, amps_l, amps_m, amps_r, loud, w)
+    h_start = int(h_start)
+    _check(phase, amps_l, amps_m, amps_r, loud, w, h_start)
     tensors = (phase, amps_l, amps_m, amps_r, loud, w)
     device = phase.device
     if device.type == "cpu":
-        return render_hop_slots_plain(phase, amps_l, amps_m, amps_r, loud, w)
+        return render_hop_slots_plain(phase, amps_l, amps_m, amps_r, loud, w, h_start)
     if device.type != "cuda":
         raise ValueError(f"osc_hop_slots: unsupported device {device}")
     if any(t.dtype != torch.float32 for t in tensors):
@@ -113,7 +122,7 @@ def osc_hop_slots(
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.osc_hop_slots(
             *(t.data_ptr() for t in tensors), out.data_ptr(),
-            n, hop, amps_l.shape[-1], stream,
+            n, hop, amps_l.shape[-1], h_start, stream,
         )
     if rc != 0:
         raise RuntimeError(f"osc_hop_slots launch failed: CUDA error {rc}")

@@ -224,7 +224,7 @@ def render_padded(
         raise ValueError(f"frame_chunk {frame_chunk} must divide T={t}")
 
     def chunk(ph, amps, loud):
-        return render_from_phase_plain(ph, amps, loud, h_start)
+        return render_from_phase(ph, amps, loud, h_start)
 
     parts = []
     for i in range(0, t, frame_chunk):

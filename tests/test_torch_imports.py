@@ -38,6 +38,12 @@ TRAINING_MODULES = (
     "ddsp_tpu_torch.ops.cuda.stft", "ddsp_tpu_torch.ops.spectral",
     "ddsp_tpu_torch.models.convert",
 )
+# the oscillator-variant slice's modules
+VARIANT_MODULES = (
+    "ddsp_tpu_torch.ops.osc_fill", "ddsp_tpu_torch.ops.cuda.osc_cheb",
+    "ddsp_tpu_torch.ops.cuda.osc_banked_bwd", "ddsp_tpu_torch.ops.cuda.osc_variants",
+    "ddsp_tpu_torch.utils.osc_sweep",
+)
 
 
 def _banned(name: str) -> bool:
@@ -71,6 +77,7 @@ def test_every_module_imports_without_jax():
     names = names.split(",")
     assert len(names) >= 28
     assert set(TRAINING_MODULES) <= set(names)
+    assert set(VARIANT_MODULES) <= set(names)
     assert loaded == "", f"port imports pulled in {loaded}"
 
 
