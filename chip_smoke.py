@@ -27,7 +27,9 @@ Phases, each of which must pass (any failure exits non-zero):
    hop 128, H=40, h_start 8): forward SNR > 90 dB, each gradient > 80 dB,
    two backward runs bit-equal; kernels, plain forward and plain
    forward + backward timed with CUDA events beside the bounds;
-6. one train step at full ``Config()`` width, batch 2, on the card
+6. one train step at full ``Config()`` width, batch 2, on the float32
+   reverb route (``reverb_grad_matmul_dtype='float32'``, as in phases 9
+   and 12, which this phase's criterion was set on), on the card
    (kernels) and on the CPU (plain path) from the same weights, batch and
    key: the step's gradients, leaf by leaf, within 1e-3 of the CPU's in
    norm (plus 1e-6 of the whole gradient's norm), ``grad_norm`` within
@@ -38,7 +40,8 @@ Phases, each of which must pass (any failure exits non-zero):
    on synthetic WAV files, batch 16, 30 steps in windows of 10, a
    checkpoint every 10 steps.  The backward kernel must launch once per
    step and the forward kernel once per step plus once per
-   reconstruction dump; every logged loss is finite; the last checkpoint
+   reconstruction dump; the default bf16 reverb backward launches S1
+   (``ct_conv``) once per step; every logged loss is finite; the last checkpoint
    restores with equal parameters; median ms per step is printed.
    Phases 1-7 run on the default 'auto' STFT route (float32 torch.stft),
    and the power-STFT kernels must not launch in phase 7.
@@ -60,7 +63,8 @@ Phases, each of which must pass (any failure exits non-zero):
 10. the training CLI at full width on the kernel route: 10 decoder steps,
    then ``--finetune_crepe=10 --pitch_decode=weighted`` at batch 16.  The
    K3 and K4 launches must equal the counts derived from the steps, sizes
-   and cached target batches; every logged loss is finite; the finetune
+   and cached target batches, S1's its 20 steps; every logged loss is
+   finite; the finetune
    checkpoint restores with equal parameters, CREPE and its BatchNorm
    statistics included; median ms per finetune step, and per decoder step
    on 'pallas' beside 'auto' (alternating in this call), are printed.
@@ -86,6 +90,17 @@ Phases, each of which must pass (any failure exits non-zero):
    plus 1e-6 of the total, grad_norm 1e-3, loss as phase 6); the bf16 K2
    launches once for the gradients and once in the step.  The setting is
    reset to None afterwards, whatever happens.
+13. S1, the permuted-CT convolution of the bf16 reverb backward
+   (``ct_conv``, ``ddsp_tpu_torch.utils.ct_conv_ab``): against its plain
+   version at the training shape (16 complex rows of 98,304, (n1, n2) =
+   (384, 256)) and a ragged one (3 rows of 6144, (96, 64)), >= 70 dB, and
+   against a float64 FFT convolution on two rows, >= 44 dB, reruns
+   bit-equal; kernel, plain version and cuFFT's ifft(fft(z) K) timed with
+   CUDA events beside the bound; then one full-width train step at batch
+   2 on the default bf16 reverb route, card vs CPU, at phase 9's bf16
+   criterion (each leaf within 5e-3 of its norm plus 1e-6 of the total,
+   grad_norm 1e-3, loss as phase 6), S1 launched exactly once for the
+   gradients and once in the step.
 
 The line before the last is a JSON object describing each kernel (launches
 on its main path, agreement with its plain version, kernel, plain, bound
@@ -179,6 +194,14 @@ FT_LOSS_RTOL, FT_GRAD_RTOL = 1e-4, 5e-3
 FT_PARAM_SEED = 2
 FT_AUDIO_SEEDS = (1, 2, 3, 4, 5)
 FT_CLI_STEPS = 10
+# S1 (phase 13): the bf16 reverb backward's training shape (16 complex rows
+# of 98,304, (n1, n2) = (384, 256)) and a ragged one ((96, 64)); against
+# its plain version (the same bf16 roundings, float32 sums in another
+# order: one bf16 ulp flips), and one bf16 pass against float64 (the plain
+# version measures 47.4-47.6 dB on the CPU, tests/test_torch_ct_conv.py).
+CT_SHAPES = ((16, 98304), (3, 6144))
+CT_PLAIN_FLOOR_DB, CT_F64_FLOOR_DB = 70.0, 44.0
+CT_ITERS = 20
 
 
 def log(msg: str) -> None:
@@ -603,8 +626,8 @@ def phase_train_step(device):
     from ddsp_tpu_torch.ops.fir import PRNGKey
     from ddsp_tpu_torch.training import trainer
 
-    conf = Config(batch_size=2)
-    conf_linear = Config(batch_size=2, mss_alpha=0.0)
+    conf = Config(batch_size=2, reverb_grad_matmul_dtype="float32")
+    conf_linear = conf.replace(mss_alpha=0.0)
     batch = feature_batch(conf, conf.batch_size, SEED + 3)
     decoder = decoder_init(conf, seed=SEED)
     step = trainer.make_train_step(conf)
@@ -667,7 +690,7 @@ def phase_training(device):
     import torch
 
     from ddsp_tpu_torch.config import Config
-    from ddsp_tpu_torch.ops.cuda import osc_frames, stft
+    from ddsp_tpu_torch.ops.cuda import ct_conv, osc_frames, stft
     from ddsp_tpu_torch.ops.fir import PRNGKey
     from ddsp_tpu_torch.training import train, trainer
 
@@ -682,12 +705,13 @@ def phase_training(device):
     stdout = io.StringIO()
     osc_frames.FWD_LAUNCHES = osc_frames.BWD_LAUNCHES = 0  # the main path from here
     stft.FWD_LAUNCHES = stft.BWD_LAUNCHES = 0
+    ct_conv.LAUNCHES = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(stdout):
         state = train.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd, bwd = osc_frames.FWD_LAUNCHES, osc_frames.BWD_LAUNCHES
+    fwd, bwd, s1 = osc_frames.FWD_LAUNCHES, osc_frames.BWD_LAUNCHES, ct_conv.LAUNCHES
     require(stft.FWD_LAUNCHES == stft.BWD_LAUNCHES == 0,
             "the 'auto' STFT route launched the power-STFT kernels")
     for line in stdout.getvalue().splitlines():
@@ -701,6 +725,7 @@ def phase_training(device):
     dumps = len([f for f in os.listdir(os.path.join(ckpt_dir, "audio")) if f.endswith(".wav")])
     n_dump = dumps // 2  # each dump forward writes two examples
     require(bwd == TRAIN_STEPS, f"backward kernel launched {bwd} times in {TRAIN_STEPS} steps")
+    require(s1 == TRAIN_STEPS, f"S1 (ct_conv) launched {s1} times in {TRAIN_STEPS} steps")
     require(fwd == TRAIN_STEPS + n_dump,
             f"forward kernel launched {fwd} times for {TRAIN_STEPS} steps + {n_dump} dump(s)")
     latest = trainer.latest_checkpoint(ckpt_dir)
@@ -716,10 +741,10 @@ def phase_training(device):
     log(f"[train] {TRAIN_STEPS} steps at batch {conf.batch_size}, full width: "
         f"{wall:.1f} s in all (features, {len(rows)} windows, checkpoints, {n_dump} dump); "
         f"losses {[round(r['loss_mean'], 4) for r in rows]}; "
-        f"forward kernel {fwd} launches, backward kernel {bwd}")
+        f"forward kernel {fwd} launches, backward kernel {bwd}, S1 {s1}")
     log(f"[train] steady state: median {ms:.3f} ms per train step over windows 2-{len(rows)} "
         f"({1e3 / ms:.2f} steps/s); checkpoint {os.path.basename(latest)} restores equal")
-    return {"osc_frames_fwd": fwd, "osc_frames_bwd": bwd}, ms
+    return {"osc_frames_fwd": fwd, "osc_frames_bwd": bwd, "ct_conv": s1}, ms
 
 
 # --------------------------------------------------------------- phase 8
@@ -932,7 +957,7 @@ def phase_finetune_step(device):
     from ddsp_tpu_torch.ops.spectral import set_stft_impl
     from ddsp_tpu_torch.training import trainer
 
-    conf = Config(batch_size=2, pitch_decode="weighted")
+    conf = Config(batch_size=2, pitch_decode="weighted", reverb_grad_matmul_dtype="float32")
     params0 = autoencoder_init(PRNGKey(FT_PARAM_SEED), conf)
     make_statistics_trainable(params0["crepe"])
     cpu = torch.device("cpu")
@@ -1011,7 +1036,7 @@ def phase_finetune_cli(device, auto_ms: float):
 
     from ddsp_tpu_torch.config import Config
     from ddsp_tpu_torch.data import dataset
-    from ddsp_tpu_torch.ops.cuda import osc_frames, stft
+    from ddsp_tpu_torch.ops.cuda import ct_conv, osc_frames, stft
     from ddsp_tpu_torch.ops.fir import PRNGKey
     from ddsp_tpu_torch.ops.spectral import set_stft_impl
     from ddsp_tpu_torch.training import train, trainer
@@ -1030,6 +1055,7 @@ def phase_finetune_cli(device, auto_ms: float):
         # the main path from here
         stft.FWD_LAUNCHES = stft.BWD_LAUNCHES = 0
         osc_frames.FWD_LAUNCHES = osc_frames.BWD_LAUNCHES = 0
+        ct_conv.LAUNCHES = 0
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(stdout):
             state = train.main(argv)
@@ -1037,7 +1063,7 @@ def phase_finetune_cli(device, auto_ms: float):
         wall = time.perf_counter() - t0
         launches = {"stft_power_fwd": stft.FWD_LAUNCHES, "stft_power_bwd": stft.BWD_LAUNCHES,
                     "osc_frames_fwd": osc_frames.FWD_LAUNCHES,
-                    "osc_frames_bwd": osc_frames.BWD_LAUNCHES}
+                    "osc_frames_bwd": osc_frames.BWD_LAUNCHES, "ct_conv": ct_conv.LAUNCHES}
         for line in stdout.getvalue().splitlines():
             log(f"[finetune-cli] | {line}")
         rows = [json.loads(line) for line in open(os.path.join(ckpt_dir, "metrics.jsonl"))]
@@ -1065,11 +1091,15 @@ def phase_finetune_cli(device, auto_ms: float):
         log(f"[finetune-cli] {n} examples, target spectra cached: {cached}; K3 launched "
             f"{launches['stft_power_fwd']} times (expected {want_fwd}), K4 "
             f"{launches['stft_power_bwd']} (expected {want_bwd}); K1 {launches['osc_frames_fwd']}, "
-            f"K2 {launches['osc_frames_bwd']}")
+            f"K2 {launches['osc_frames_bwd']}, S1 {launches['ct_conv']} (expected "
+            f"{2 * FT_CLI_STEPS})")
         require(launches["stft_power_fwd"] == want_fwd,
                 f"K3 launched {launches['stft_power_fwd']} times, expected {want_fwd}")
         require(launches["stft_power_bwd"] == want_bwd,
                 f"K4 launched {launches['stft_power_bwd']} times, expected {want_bwd}")
+        # one bf16 reverb backward a decoder step and a finetune step
+        require(launches["ct_conv"] == 2 * FT_CLI_STEPS,
+                f"S1 launched {launches['ct_conv']} times, expected {2 * FT_CLI_STEPS}")
 
         ft_dir = os.path.join(ckpt_dir, "finetune")
         latest = trainer.latest_checkpoint(ft_dir)
@@ -1280,7 +1310,7 @@ def phase_contract_step(device):
     from ddsp_tpu_torch.ops.fir import PRNGKey
     from ddsp_tpu_torch.training import trainer
 
-    conf = Config(batch_size=2)
+    conf = Config(batch_size=2, reverb_grad_matmul_dtype="float32")
     batch = feature_batch(conf, conf.batch_size, SEED + 3)
     decoder = decoder_init(conf, seed=SEED)
     k2_bf16 = osc_frames.variant_name("osc_frames_bwd", bf16=True)
@@ -1319,6 +1349,84 @@ def phase_contract_step(device):
         f"{rel:.3e} of its norm, criterion {crit:.4f} (< 1 passes)")
     require(crit < 1.0, f"bf16 contraction step gradient of {leaf}: criterion {crit:.4f} >= 1")
     return {k2_bf16: launched[k2_bf16] + in_step}
+
+
+# --------------------------------------------------------------- phase 13
+
+
+def phase_ct_conv(device):
+    """S1 against its plain version and float64 at two shapes, timed; then
+    a full-width train step on the default bf16 reverb route, card vs CPU.
+    Returns S1's JSON numbers at the training shape."""
+    import copy
+
+    import torch
+
+    from ddsp_tpu_torch.config import Config
+    from ddsp_tpu_torch.models.controller import decoder_init
+    from ddsp_tpu_torch.ops.cuda import ct_conv
+    from ddsp_tpu_torch.ops.fir import PRNGKey
+    from ddsp_tpu_torch.training import trainer
+    from ddsp_tpu_torch.utils import ct_conv_ab
+
+    result = {}
+    for rows, n in CT_SHAPES:
+        r = ct_conv_ab.race(device, rows, n, iters=CT_ITERS, seed=rows)
+        shape = f"{rows} rows x {n} {tuple(r['n1n2'])}"
+        require(r["finite"], f"S1 output not finite at {shape}")
+        require(r["bit_equal"], f"S1 differs between two runs at {shape}")
+        require(r["snr_plain_db"] >= CT_PLAIN_FLOOR_DB,
+                f"S1 vs plain {r['snr_plain_db']:.2f} dB < {CT_PLAIN_FLOOR_DB} at {shape}")
+        require(r["snr_f64_db"] >= CT_F64_FLOOR_DB,
+                f"S1 vs float64 {r['snr_f64_db']:.2f} dB < {CT_F64_FLOOR_DB} at {shape}")
+        log(f"[ct-conv] {shape}: vs plain {r['snr_plain_db']:.2f} dB (max |err| "
+            f"{r['max_abs_err']:.3e}), vs float64 {r['snr_f64_db']:.2f} dB (plain "
+            f"{r['plain_snr_f64_db']:.2f}, cuFFT {r['library_snr_f64_db']:.2f}), bit-equal on "
+            f"rerun; kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, cuFFT ifft(fft(z) K) "
+            f"{r['library_ms']:.5f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}); runs "
+            f"{r['runs_ms']}")
+        if (rows, n) == CT_SHAPES[0]:
+            result = dict(snr_db=r["snr_plain_db"], snr_f64_db=r["snr_f64_db"],
+                          max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                          bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                          library_ms=r["library_ms"], runs_ms=r["runs_ms"])
+        torch.cuda.empty_cache()
+
+    conf = Config(batch_size=2)
+    require(conf.reverb_grad_matmul_dtype == "bfloat16", "the default reverb route is not bf16")
+    batch = feature_batch(conf, conf.batch_size, SEED + 3)
+    decoder = decoder_init(conf, seed=SEED)
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        params = copy.deepcopy(decoder).to(dev)
+        on_dev = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        ct_conv.LAUNCHES = 0
+        grads = step_gradients(params, on_dev, conf, PRNGKey(SEED, dev))
+        grad_launches = ct_conv.LAUNCHES
+        state = trainer.TrainState(0, params, trainer.make_optimizer(conf).init(
+            list(params.parameters())), PRNGKey(SEED, dev))
+        state, metrics = trainer.make_train_step(conf)(state, on_dev)
+        out[dev.type] = (float(metrics["loss"]), float(metrics["grad_norm"]), grads,
+                         grad_launches, ct_conv.LAUNCHES - grad_launches)
+        log(f"[ct-conv-step] {dev}: loss {out[dev.type][0]:.6f}, grad_norm "
+            f"{out[dev.type][1]:.6f}; S1 launches for the gradients {grad_launches}, in the "
+            f"step {out[dev.type][4]}")
+    (l_gpu, n_gpu, g_gpu, launched, in_step), (l_cpu, n_cpu, g_cpu, _, _) = out["cuda"], out["cpu"]
+    require(launched == 1 and in_step == 1,
+            f"bf16 reverb step: S1 launched {launched} times for the gradients, {in_step} in the step")
+    loss_tol = max(LOSS_ATOL, LOSS_RTOL * abs(l_cpu))
+    require(np.isfinite(l_gpu) and abs(l_gpu - l_cpu) < loss_tol,
+            f"bf16 reverb step loss card {l_gpu} vs CPU {l_cpu} (tolerance {loss_tol:.3e})")
+    norm_err = abs(n_gpu - n_cpu) / n_cpu
+    require(np.isfinite(n_gpu) and norm_err <= GRAD_RTOL,
+            f"bf16 reverb step grad_norm {n_gpu} vs {n_cpu}: {norm_err:.3e} > {GRAD_RTOL}")
+    leaf, crit, rel = worst_leaf(g_gpu, g_cpu, FT_GRAD_RTOL)
+    log(f"[ct-conv-step] card vs CPU, {len(g_cpu)} leaves: loss {abs(l_gpu - l_cpu):.3e} apart "
+        f"(< {loss_tol:.3e}), grad_norm {norm_err:.3e} relative; worst leaf {leaf}: |diff| "
+        f"{rel:.3e} of its norm, criterion {crit:.4f} (< 1 passes)")
+    require(crit < 1.0, f"bf16 reverb step gradient of {leaf}: criterion {crit:.4f} >= 1")
+    result["launches_step"] = launched + in_step
+    return result
 
 
 def timed_phase(phase: int, fn, *args):
@@ -1376,6 +1484,7 @@ def main() -> int:
         set_stft_impl("auto")
     variants = timed(11, phase_variants, device)
     contract_launches = timed(12, phase_contract_step, device)
+    s1 = timed(13, phase_ct_conv, device)
 
     no_library = ("null: no single PyTorch call computes a harmonic sine-bank render or its "
                   "gradient; the nearest is the plain version")
@@ -1405,6 +1514,12 @@ def main() -> int:
         "osc_frames_fwd": ("osc_frames.cu", f"{osc_tpu}:152", "_kernel_banked2 (K8 options)"),
         "osc_frames_bwd": ("osc_frames.cu", f"{osc_tpu}:777", "_kernel_banked2_bwd (K8 options)"),
     }
+    kernels.append(dict(
+        name="ct_conv", route="cuda", source="ddsp_tpu_torch/csrc/ct_conv.cu",
+        replaces="scripts/ab_ct_conv_kernel.py:44", tpu_function="_kernel",
+        launches=train_launches["ct_conv"], launches_finetune_cli=ft_launches["ct_conv"],
+        library="torch.fft.ifft(torch.fft.fft(z) * K) on the same complex rows (cuFFT)",
+        **s1))
     for name, entry in variants.items():
         if name in ("osc_frames_fwd", "osc_frames_bwd"):
             continue  # the default K1/K2: their entries above

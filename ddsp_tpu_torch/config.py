@@ -19,9 +19,12 @@ Some fields only choose a TPU code path in the JAX package.  In this port:
   the loss spectrograms, as it selects the Pallas kernels in the JAX
   package; under the default 'auto' every loss STFT is a float32
   ``torch.stft``, whatever its value;
-* ``reverb_grad_matmul_dtype`` is accepted and changes nothing: the
-  reverb's forward and backward are float32 ``torch.fft`` transforms,
-  since cuFFT has no bf16 transform.
+* ``reverb_grad_matmul_dtype`` ('bfloat16' by default) means what it
+  means in the JAX package: the reverb's backward runs at that precision
+  (``ops/fir.fft_convolve``), its d/dsignal on the permuted-CT transform
+  with bf16 operands (the S1 kernel on the card); 'float32' is plain
+  autograd of the float32 ``torch.fft`` convolution.  The forward is
+  float32 either way.
 """
 
 from __future__ import annotations
@@ -104,9 +107,8 @@ class Config:
     # routes the loss spectrograms through the bf16 power-STFT kernels when
     # set_stft_impl('pallas') is set; otherwise they are float32 torch.stft.
     loss_matmul_dtype: str = "bfloat16"
-    # dtype of the JAX package's reverb-convolution backward DFT matmuls.
-    # Changes nothing in the port: the reverb's forward and backward are
-    # float32 torch.fft transforms.
+    # dtype of the reverb-convolution backward's DFT matmul operands
+    # (ops/fir.fft_convolve); 'float32' is plain float32 autograd.
     reverb_grad_matmul_dtype: str = "bfloat16"
     # JAX oscillator path ('auto' | 'xla' | 'pallas').  Not read by the
     # port: the device decides -- a CUDA tensor launches the CUDA kernels

@@ -85,11 +85,14 @@ def reverb_impulse(reverb: Reverb, conf: Config) -> torch.Tensor:
 def reverb_apply(reverb: Reverb, x: torch.Tensor, conf: Config) -> torch.Tensor:
     """Convolve (B, L) audio with the learned IR (reference reverb.py:31-38).
 
-    Forward and backward are float32 ``torch.fft`` transforms, whatever
-    ``conf.reverb_grad_matmul_dtype`` says (``ops/fir.fft_convolve``).
+    The forward is the float32 ``torch.fft`` convolution; the backward runs
+    at ``conf.reverb_grad_matmul_dtype`` (``ops/fir.fft_convolve``), as in
+    the JAX package: the default 'bfloat16' takes the permuted-CT
+    d/dsignal (the S1 kernel on the card), 'float32' plain autograd.
     """
     impulse = reverb_impulse(reverb, conf)
-    return fft_convolve(x, impulse[None, :], kernel_len=impulse.shape[-1])
+    return fft_convolve(x, impulse[None, :], kernel_len=impulse.shape[-1],
+                        grad_matmul_dtype=conf.reverb_grad_matmul_dtype)
 
 
 class ReverbLiveState(NamedTuple):

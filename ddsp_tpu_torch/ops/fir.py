@@ -14,7 +14,8 @@ Counterpart of ``ddsp_tpu/ops/fir.py``:
   precomputed (n_filters, n_bins) matrix pair;
 * ``amp_to_impulse_response`` and ``fft_convolve`` are the reference's
   FIR design and causal convolution (filtered_noise.py:7-32), the latter
-  on ``torch.fft``.
+  on ``torch.fft``, with the JAX package's reduced-precision backward
+  (``grad_matmul_dtype``: at bf16 its d/dsignal runs on the S1 kernel).
 
 Torch has no 32-bit unsigned shifts on every device, so the 32-bit cipher
 arithmetic runs in int64 with explicit masking: every value stays in
@@ -176,13 +177,67 @@ def fft_convolve(
     ``out[n] = sum_{k<=n} kernel[k] * signal[n-k]``, (..., L).
 
     ``kernel_len`` declares the kernel's true support (the FFT size
-    shrinks to it).  ``grad_matmul_dtype`` is accepted for the JAX
-    package's signature and changes nothing: there it runs the backward's
-    DFT matmuls in bf16 on the TPU; here forward and backward are float32
-    ``torch.fft`` transforms, since cuFFT has no bf16 transform.
+    shrinks to it).  ``grad_matmul_dtype`` (e.g. 'bfloat16'), as in the
+    JAX package (``ddsp_tpu/ops/fir.py:63-139``), runs the backward at
+    reduced precision while the forward stays the float32 convolution,
+    bit for bit.  It needs a 2-D signal and a 2-D kernel (one shared row
+    or one per row); other shapes, None and 'float32' are plain autograd
+    of the float32 ``torch.fft`` convolution.  See :class:`_FastGradConvolve`.
     """
-    del grad_matmul_dtype
-    return rfft_convolve_same(signal, kernel, kernel_len or kernel.shape[-1])
+    kernel_len = kernel_len or kernel.shape[-1]
+    if (
+        grad_matmul_dtype is not None
+        and grad_matmul_dtype != "float32"
+        and signal.ndim == 2
+        and kernel.ndim == 2
+    ):
+        return _FastGradConvolve.apply(signal, kernel, kernel_len,
+                                       getattr(torch, grad_matmul_dtype))
+    return rfft_convolve_same(signal, kernel, kernel_len)
+
+
+class _FastGradConvolve(torch.autograd.Function):
+    """The causal convolution with a reduced-precision backward.
+
+    The convolution is bilinear, so each gradient is a correlation with
+    the other operand:
+
+    * d/dsignal = flip(rfft_convolve_same(flip(g), kernel, kernel_len,
+      matmul_dtype)).  With one shared kernel row at reverb scale this is
+      the permuted-CT path in ``matmul_dtype``, and at bf16 the S1 kernel
+      (``ops/cuda/ct_conv.py``) on the card, which is the JAX package's
+      bf16 transpose computed as a convolution of the flipped cotangent;
+    * d/dkernel = the float32 ``torch.fft`` correlation of g with the
+      signal, summed over the batch for a shared kernel, zero past
+      ``kernel_len``.  S1's shared-spectrum form does not fit it (the
+      signal differs per row), so it stays a stock op, tighter than the
+      JAX package's bf16 d/dkernel.
+    """
+
+    @staticmethod
+    def forward(ctx, signal, kernel, kernel_len: int, matmul_dtype):
+        ctx.save_for_backward(signal, kernel)
+        ctx.kernel_len, ctx.matmul_dtype = kernel_len, matmul_dtype
+        return rfft_convolve_same(signal, kernel, kernel_len)
+
+    @staticmethod
+    def backward(ctx, g):
+        signal, kernel = ctx.saved_tensors
+        kernel_len = ctx.kernel_len
+        dsignal = dkernel = None
+        if ctx.needs_input_grad[0]:
+            dsignal = rfft_convolve_same(
+                g.flip(-1), kernel, kernel_len, matmul_dtype=ctx.matmul_dtype
+            ).flip(-1)
+        if ctx.needs_input_grad[1]:
+            width = min(kernel_len, kernel.shape[-1])
+            n = next_fft_size(signal.shape[-1] + kernel_len - 1)
+            spec = torch.fft.rfft(g, n=n) * torch.fft.rfft(signal, n=n).conj()
+            if kernel.shape[0] == 1:
+                spec = spec.sum(0, keepdim=True)
+            corr = torch.fft.irfft(spec, n=n)[..., :width]
+            dkernel = torch.nn.functional.pad(corr, (0, kernel.shape[-1] - width))
+        return dsignal, dkernel, None, None
 
 
 @functools.lru_cache(maxsize=None)

@@ -44,6 +44,11 @@ VARIANT_MODULES = (
     "ddsp_tpu_torch.ops.cuda.osc_banked_bwd", "ddsp_tpu_torch.ops.cuda.osc_variants",
     "ddsp_tpu_torch.utils.osc_sweep",
 )
+# the bf16 reverb backward's modules (S1)
+CT_CONV_MODULES = (
+    "ddsp_tpu_torch.ops.cuda.ct_conv", "ddsp_tpu_torch.utils.ct_conv_ab",
+    "ddsp_tpu_torch.utils.profile_reverb_grad",
+)
 
 
 def _banned(name: str) -> bool:
@@ -78,6 +83,7 @@ def test_every_module_imports_without_jax():
     assert len(names) >= 28
     assert set(TRAINING_MODULES) <= set(names)
     assert set(VARIANT_MODULES) <= set(names)
+    assert set(CT_CONV_MODULES) <= set(names)
     assert loaded == "", f"port imports pulled in {loaded}"
 
 
