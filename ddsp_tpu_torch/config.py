@@ -7,9 +7,11 @@ the port never loads the JAX package.
 
 Some fields only choose a TPU code path in the JAX package.  In this port:
 
-* ``osc_impl`` is read by nothing: the oscillator dispatches by device
-  (a CUDA tensor launches the hand-written kernels, a CPU tensor takes
-  their plain PyTorch versions);
+* ``osc_impl`` chooses the oscillator's sine fill as the JAX package's
+  dispatch chooses its path (``models/synths.osc_fill``): 'auto' is the
+  TPU kernels' rotation fill on the card (the kernels K1, K2 and K5) and
+  the exact fill of the XLA path on the CPU (their plain versions);
+  'pallas' is the rotation fill on both, 'xla' the exact fill on both;
 * ``crepe_layout`` is read by nothing: the port runs the torch-shaped
   (N, C, H) convolution stack, the same math as both JAX layouts;
 * ``crepe_compute_dtype`` and ``compute_dtype`` are read by nothing: the
@@ -110,10 +112,11 @@ class Config:
     # dtype of the reverb-convolution backward's DFT matmul operands
     # (ops/fir.fft_convolve); 'float32' is plain float32 autograd.
     reverb_grad_matmul_dtype: str = "bfloat16"
-    # JAX oscillator path ('auto' | 'xla' | 'pallas').  Not read by the
-    # port: the device decides -- a CUDA tensor launches the CUDA kernels
-    # (ops/cuda/oscillator.py, ops/cuda/osc_frames.py), a CPU tensor takes
-    # their plain versions.
+    # Oscillator path ('auto' | 'xla' | 'pallas').  The port reads it as
+    # the sine fill (models/synths.osc_fill): the Pallas kernels' rotation
+    # fill for 'pallas' and for 'auto' on the card, the XLA path's exact
+    # fill for 'xla' and for 'auto' on the CPU.  The device decides
+    # whether the CUDA kernels or their plain versions run.
     osc_impl: str = "auto"
 
     # --- parallelism --------------------------------------------------------

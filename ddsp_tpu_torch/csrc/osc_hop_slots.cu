@@ -28,17 +28,25 @@
 // accurate sinf.  Build without --use_fast_math: its __sinf loses the accuracy the
 // split buys.
 //
-// Left for later: seeding exactly every 8 harmonics and rotating in
-// between (fewer instructions per point), tensor cores, persistent blocks.
+// Two fills (osc_fill.cuh), each an instantiation: kExact, one sinf per
+// harmonic (the XLA path's function), and kRot, _kernel_banked's own fill
+// (_fill_sine_banks_cat, :58): tiles of 8 harmonics from h_start + 1, the
+// first seeded exactly, every later one the previous rotated by
+// e^{i 2 pi 8 x}, rounded one IEEE operation at a time as the plain
+// version (ops/osc_fill.py) is.  The rotation costs 6 operations a point
+// against a sine's ~24.
+//
+// Left for later: tensor cores, persistent blocks.
 
 #include <cuda_runtime.h>
 
-#include "osc_phase.cuh"
+#include "osc_fill.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 
+template <int kFill>
 __global__ void __launch_bounds__(kThreads)
 osc_hop_slots_kernel(const float* __restrict__ phase,   // (N, hop)
                      const float* __restrict__ amps_l,  // (N, H)
@@ -48,13 +56,14 @@ osc_hop_slots_kernel(const float* __restrict__ phase,   // (N, hop)
                      const float* __restrict__ w,       // (hop, 3)
                      float* __restrict__ out,           // (N, hop)
                      int hop, int n_harm, int h_start) {
-  extern __shared__ float amps[];  // [3][n_harm]: this slot's window rows
+  extern __shared__ float amps[];  // [3][hb]: this slot's window rows, zero-padded
+  const int hb = (n_harm + 7) / 8 * 8;
   const size_t slot = blockIdx.y;
   const float* rows[3] = {amps_l + slot * n_harm, amps_m + slot * n_harm,
                           amps_r + slot * n_harm};
   for (int k = 0; k < 3; ++k) {
-    for (int i = threadIdx.x; i < n_harm; i += blockDim.x) {
-      amps[k * n_harm + i] = rows[k][i];
+    for (int i = threadIdx.x; i < hb; i += blockDim.x) {
+      amps[k * hb + i] = i < n_harm ? rows[k][i] : 0.0f;
     }
   }
   __syncthreads();
@@ -62,19 +71,22 @@ osc_hop_slots_kernel(const float* __restrict__ phase,   // (N, hop)
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= hop) return;
 
-  float hi, lo;
-  osc::split_phase(phase[slot * hop + j], &hi, &lo);
   const float* a_l = amps;
-  const float* a_m = amps + n_harm;
-  const float* a_r = amps + 2 * n_harm;
+  const float* a_m = amps + hb;
+  const float* a_r = amps + 2 * hb;
+  osc::TileFill<kFill, false> fill;
+  fill.init(phase[slot * hop + j], h_start, 8, 1 << 30);
 
   float s_l = 0.0f, s_m = 0.0f, s_r = 0.0f;
-  for (int i = 0; i < n_harm; ++i) {
-    const float h = static_cast<float>(h_start + i + 1);
-    const float s = sinf(osc::kTwoPi * osc::harmonic_frac(hi, lo, h));
-    s_l = fmaf(a_l[i], s, s_l);
-    s_m = fmaf(a_m[i], s, s_m);
-    s_r = fmaf(a_r[i], s, s_r);
+  for (int g = 0; g < hb / 8; ++g) {
+    fill.tile(g);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int k = 8 * g + i;
+      s_l = fmaf(a_l[k], fill.s[i], s_l);
+      s_m = fmaf(a_m[k], fill.s[i], s_m);
+      s_r = fmaf(a_r[k], fill.s[i], s_r);
+    }
   }
 
   const float w0 = w[3 * j], w1 = w[3 * j + 1], w2 = w[3 * j + 2];
@@ -84,20 +96,38 @@ osc_hop_slots_kernel(const float* __restrict__ phase,   // (N, hop)
   out[slot * hop + j] = loud_up * harm;
 }
 
+template <int kFill>
+cudaError_t launch(const float* phase, const float* amps_l, const float* amps_m,
+                   const float* amps_r, const float* loud, const float* w, float* out,
+                   int n, int hop, int n_harm, int h_start, cudaStream_t stream) {
+  const dim3 grid((hop + kThreads - 1) / kThreads, n);
+  const size_t smem = 3 * static_cast<size_t>((n_harm + 7) / 8 * 8) * sizeof(float);
+  osc_hop_slots_kernel<kFill><<<grid, kThreads, smem, stream>>>(
+      phase, amps_l, amps_m, amps_r, loud, w, out, hop, n_harm, h_start);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).  The
-// caller has checked shapes: n <= 65535 slots, h_start + n_harm <= 2048.
+// caller has checked shapes: n <= 65535 slots, h_start + n_harm <= 2048;
+// fill 0 = exact, 1 = rot (osc::Fill).
 extern "C" int osc_hop_slots(const float* phase, const float* amps_l,
                              const float* amps_m, const float* amps_r,
                              const float* loud, const float* w, float* out,
-                             int n, int hop, int n_harm, int h_start,
+                             int n, int hop, int n_harm, int h_start, int fill,
                              void* stream) {
   if (n == 0 || hop == 0) return 0;
-  const dim3 grid((hop + kThreads - 1) / kThreads, n);
-  const size_t smem = 3 * static_cast<size_t>(n_harm) * sizeof(float);
-  osc_hop_slots_kernel<<<grid, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      phase, amps_l, amps_m, amps_r, loud, w, out, hop, n_harm, h_start);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (fill == osc::kExact) {
+    err = launch<osc::kExact>(phase, amps_l, amps_m, amps_r, loud, w, out, n, hop, n_harm,
+                              h_start, s);
+  } else if (fill == osc::kRot) {
+    err = launch<osc::kRot>(phase, amps_l, amps_m, amps_r, loud, w, out, n, hop, n_harm,
+                            h_start, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }

@@ -6,7 +6,8 @@ model/ddsp/harmonic_oscillator.py, filtered_noise.py, reverb.py):
 * ``oscillator_apply``, ``noise_apply`` and ``reverb_apply`` are the
   offline (training) render of a controls dict; the oscillator dispatches
   by device to the CUDA kernel pair or its plain version
-  (ops/oscillator.py);
+  (ops/oscillator.py), with the sine fill that :func:`osc_fill` resolves
+  from ``conf.osc_impl``;
 * the streaming reverb splits the IR into P block-sized partitions whose
   2*block rDFT spectra multiply the stored spectra of the last P dry
   windows (overlap-save); the P-deep line carries the IR's whole memory,
@@ -27,6 +28,25 @@ from ddsp_tpu_torch.ops.fir import fft_convolve, filtered_noise
 from ddsp_tpu_torch.ops.oscillator import oscillator_bank
 
 
+OSC_IMPLS = ("auto", "xla", "pallas")
+
+
+def osc_fill(osc_impl: str, device) -> str:
+    """The oscillator's sine fill for ``Config.osc_impl`` on a device
+    (a ``torch.device`` or its type), as ``ddsp_tpu/models/synths.py:28-42``
+    chooses a path: 'pallas', and 'auto' on the card, take the TPU kernels'
+    rotation fill ('rot', ``_fill_sine_banks_cat``); 'xla', and 'auto' on
+    the CPU (where JAX runs its XLA einsum), the exact fill ('exact').  The
+    device still decides whether the CUDA kernels or their plain versions
+    compute it."""
+    if osc_impl not in OSC_IMPLS:
+        raise ValueError(f"osc_impl must be one of {OSC_IMPLS}, got {osc_impl!r}")
+    device_type = getattr(device, "type", device)
+    if osc_impl == "pallas" or (osc_impl == "auto" and device_type == "cuda"):
+        return "rot"
+    return "exact"
+
+
 def oscillator_apply(
     controls: dict,
     conf: Config,
@@ -36,15 +56,19 @@ def oscillator_apply(
     """Offline harmonic render from a controls dict {f0, c, a}.
 
     Returns (audio (B, T*hop), final fundamental phase (B,)).  CUDA tensors
-    run the kernel pair (``conf.osc_impl`` is not read: the device
-    decides), CPU tensors the plain version.
+    run the kernel pair, CPU tensors the plain version, with the fill of
+    :func:`osc_fill`; a ``frame_chunk`` takes the exact fill, as the JAX
+    package takes its XLA path for one.
     """
+    f0 = controls["f0"]
+    fill = "exact" if frame_chunk is not None else osc_fill(conf.osc_impl, f0.device)
     return oscillator_bank(
-        controls["f0"], controls["c"], controls["a"],
+        f0, controls["c"], controls["a"],
         sample_rate=conf.sample_rate,
         hop=conf.hop_length,
         initial_phase=initial_phase,
         frame_chunk=frame_chunk,
+        fill=fill,
     )
 
 

@@ -17,7 +17,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
@@ -44,21 +44,23 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` (once per source, headers and flags) and
+def build(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` (once per source, headers, flags and
+    ``defines``, e.g. ``("CT_CONV_STAMPS",)`` for a measurement build) and
     return the path of the shared library."""
     source = CSRC / f"{name}.cu"
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     digest = hashlib.sha256(source.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     lib = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(source)],
+        [_nvcc(), *flags, "-I", str(CSRC), "-o", str(tmp), str(source)],
         capture_output=True,
         text=True,
     )

@@ -13,9 +13,12 @@ phase stage, without the TPU's padding:
   per-window gradients onto the padded frame axis: (dphase (B, T, hop),
   d amps_pad (B, T+2, H), d loud_pad (B, T+2));
 * ``OscFrames`` joins the two in one ``torch.autograd.Function``;
-* ``render_from_phase`` dispatches by device only: a CUDA tensor takes
-  ``OscFrames``, a CPU tensor the plain version with ordinary autograd.
-  Nothing falls back from the card to the plain version.
+* ``render_from_phase(..., fill)`` dispatches by device: a CUDA tensor
+  takes ``OscFrames``, a CPU tensor the plain version of the same fill
+  (``OscFramesPlain``).  The training path passes the fill that
+  ``models/synths.osc_fill`` resolves from ``Config.osc_impl``: 'rot',
+  the TPU kernels' own, on the card by default.  Nothing falls back from
+  the card to the plain version.
 
 The kernels take the options of ``_kernel_banked2`` / ``_bwd`` (K8,
 ``:507-520``, ``:894-906``), each compiled as its own instantiation:
@@ -311,44 +314,50 @@ def osc_frames_bwd(
 
 
 class OscFrames(torch.autograd.Function):
-    """The forward kernel with the backward kernel as its gradient, which
-    contracts in bf16 when the contract dtype was 'bfloat16' as the
-    forward ran.  The gradient with respect to ``h_start`` is none
-    (``_render_h``'s VJP returns zeros for it)."""
+    """The forward kernel with the backward kernel as its gradient, both on
+    one ``fill``; the backward contracts in bf16 when the contract dtype
+    was 'bfloat16' as the forward ran.  The gradient with respect to
+    ``h_start`` is none (``_render_h``'s VJP returns zeros for it)."""
 
     @staticmethod
-    def forward(ctx, phase, amps_pad, loud_pad, h_start: int):
+    def forward(ctx, phase, amps_pad, loud_pad, h_start: int, fill: str):
         ctx.save_for_backward(phase, amps_pad, loud_pad)
-        ctx.h_start = h_start
+        ctx.h_start, ctx.fill = h_start, fill
         ctx.bf16 = _BWD_CONTRACT_DTYPE == "bfloat16"
-        return osc_frames_fwd(phase, amps_pad, loud_pad, h_start)
+        return osc_frames_fwd(phase, amps_pad, loud_pad, h_start, fill=fill)
 
     @staticmethod
     def backward(ctx, g):
         phase, amps_pad, loud_pad = ctx.saved_tensors
         dphase, d_amps, d_loud = osc_frames_bwd(
-            g.contiguous(), phase, amps_pad, loud_pad, ctx.h_start, bf16=ctx.bf16
+            g.contiguous(), phase, amps_pad, loud_pad, ctx.h_start, fill=ctx.fill,
+            bf16=ctx.bf16,
         )
-        return dphase, d_amps, d_loud, None
+        return dphase, d_amps, d_loud, None, None
 
 
-class OscFramesPlainBf16(torch.autograd.Function):
-    """CPU: the plain forward with the plain backward's bf16 casts, for a
-    training step under ``set_osc_bwd_contract_dtype('bfloat16')``."""
+class OscFramesPlain(torch.autograd.Function):
+    """CPU: the plain forward of ``fill`` with the plain backward of the
+    same fill, written out as the kernels' three contractions (with the
+    bf16 casts under ``set_osc_bwd_contract_dtype('bfloat16')``): what the
+    JAX package's ``_render_h`` computes in Pallas interpret mode."""
 
     @staticmethod
-    def forward(ctx, phase, amps_pad, loud_pad, h_start: int):
+    def forward(ctx, phase, amps_pad, loud_pad, h_start: int, fill: str):
         ctx.save_for_backward(phase, amps_pad, loud_pad)
-        ctx.h_start = h_start
-        return render_from_phase_plain(phase, amps_pad, loud_pad, h_start)
+        ctx.h_start, ctx.fill = h_start, fill
+        ctx.bf16 = _BWD_CONTRACT_DTYPE == "bfloat16"
+        if fill == "exact":
+            return render_from_phase_plain(phase, amps_pad, loud_pad, h_start)
+        return render_from_phase_variant_plain(phase, amps_pad, loud_pad, h_start, fill)
 
     @staticmethod
     def backward(ctx, g):
         phase, amps_pad, loud_pad = ctx.saved_tensors
         grads = render_from_phase_bwd_variant_plain(
-            g, phase, amps_pad, loud_pad, ctx.h_start, bf16=True
+            g, phase, amps_pad, loud_pad, ctx.h_start, fill=ctx.fill, bf16=ctx.bf16
         )
-        return (*grads, None)
+        return (*grads, None, None)
 
 
 def render_from_phase(
@@ -356,22 +365,26 @@ def render_from_phase(
     amps_pad: torch.Tensor,
     loud_pad: torch.Tensor,
     h_start: int = 0,
+    fill: str = "exact",
 ) -> torch.Tensor:
-    """(B, T, hop) phase, (B, T+2, H) amps, (B, T+2) loudness -> (B, T*hop).
+    """(B, T, hop) phase, (B, T+2, H) amps, (B, T+2) loudness -> (B, T*hop),
+    on the sine ``fill`` ('exact' or 'rot', forward and backward).
 
     CUDA tensors go through :class:`OscFrames` (the kernel pair); CPU
-    tensors take :func:`render_from_phase_plain` (with
-    :class:`OscFramesPlainBf16` under a bf16 contract dtype); any other
-    device raises.
+    tensors take :func:`render_from_phase_plain` with ordinary autograd on
+    the exact fill and float32 contractions, else :class:`OscFramesPlain`;
+    any other device raises.
     """
+    if fill not in ("exact", "rot"):
+        raise ValueError(f"render_from_phase fills 'exact' or 'rot', got {fill!r}")
     device = phase.device
     if device.type == "cpu":
-        if _BWD_CONTRACT_DTYPE is None:
+        if fill == "exact" and _BWD_CONTRACT_DTYPE is None:
             return render_from_phase_plain(phase, amps_pad, loud_pad, h_start)
-        return OscFramesPlainBf16.apply(phase, amps_pad, loud_pad, int(h_start))
+        return OscFramesPlain.apply(phase, amps_pad, loud_pad, int(h_start), fill)
     if device.type != "cuda":
         raise ValueError(f"render_from_phase: unsupported device {device}")
     return OscFrames.apply(
         phase.contiguous(), amps_pad.contiguous(), loud_pad.contiguous(),
-        int(h_start),
+        int(h_start), fill,
     )

@@ -8,7 +8,8 @@ on the port's kernels:
 ``pallas_forward``
 ``impl='banked'``          K5 (``ops/cuda/oscillator.osc_hop_slots``) over the
                            B*T frame rows, windows from ``amps_pad[:, :-2]``,
-                           ``[1:-1]``, ``[2:]``; takes ``h_start``
+                           ``[1:-1]``, ``[2:]``, on ``_kernel_banked``'s
+                           rotation fill; takes ``h_start``
 ``impl='banked2'``         K1 with the K8 options (``ops/cuda/osc_frames``):
                            ``fill``, ``resync_tiles``, ``k_chunk``; bf16
                            operands when ``bank_dtype='bfloat16'`` or
@@ -89,15 +90,15 @@ def _device(*tensors) -> torch.device:
 def render_rows(phase1, amps_pad, loud_pad, h_start: int = 0,
                 plain: bool = False) -> torch.Tensor:
     """``impl='banked'``: every frame of the batch as an independent K5 row
-    with its (previous, current, next) windows (``plain``: K5's plain
-    version on any device).  Returns (B, T*hop)."""
+    with its (previous, current, next) windows, on the rotation fill
+    (``plain``: K5's plain version on any device).  Returns (B, T*hop)."""
     b, t, hop = phase1.shape
     rows = lambda x: x.reshape(b * t, -1).contiguous()  # noqa: E731
     loud = torch.stack([loud_pad[:, :-2], loud_pad[:, 1:-1], loud_pad[:, 2:]], -1)
     out = (render_hop_slots_plain if plain else osc_hop_slots)(
         rows(phase1), rows(amps_pad[:, :-2]), rows(amps_pad[:, 1:-1]),
         rows(amps_pad[:, 2:]), loud.reshape(b * t, 3).contiguous(),
-        hop_weights_on(hop, phase1.device), h_start,
+        hop_weights_on(hop, phase1.device), h_start, "rot",
     )
     return out.reshape(b, t * hop)
 

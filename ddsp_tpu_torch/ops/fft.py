@@ -20,7 +20,7 @@ used, as the JAX package casts them.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +93,7 @@ def _twiddle(n1: int, n2: int) -> Tuple[np.ndarray, np.ndarray]:
     return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
 def _split_factors(n: int) -> Tuple[int, int]:
     """n = n1 * n2 with both factors <= DIRECT_MAX and n1 + n2 least
     (n1 >= n2): the JAX package's factorisation."""
@@ -194,6 +195,36 @@ def ct_conv_permuted(zr, zi, kr, ki, n: int, matmul_dtype=None):
     return _ct_inv_permuted(pr * krm - pi * kim, pr * kim + pi * krm, n, matmul_dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded_tables(n: int, device, matmul_dtype):
+    """``ct_tables(n, device)``'s DFT matrices rounded to ``matmul_dtype``
+    and held in float32, as ``_mm`` rounds them, made once."""
+    d1r, d1i, d2r, d2i, _, _ = ct_tables(n, device)
+    return tuple(m.to(matmul_dtype).float() for m in (d1r, d1i, d2r, d2i))
+
+
+def shared_kernel_spectrum(kernel: torch.Tensor, kernel_len: int, n: int, matmul_dtype=None):
+    """(kr, ki): the permuted n-point spectrum (1, n1, n2) of one shared
+    real kernel row (1, >= kernel_len), cut to ``kernel_len`` taps and
+    zero-padded (a shorter kernel too): one plain transform, operands in
+    ``matmul_dtype``.  The same values as ``_ct_fwd_permuted(k, 0, n,
+    matmul_dtype)`` (its products with the zero imaginary part are zeros,
+    and the tables are rounded once), in half its operations."""
+    k = kernel[..., :kernel_len]
+    k = F.pad(k, (0, n - k.shape[-1]))
+    if matmul_dtype is None:
+        return _ct_fwd_permuted(k, torch.zeros_like(k), n)
+    n1, n2 = _split_factors(n)
+    d1r, d1i, d2r, d2i = _rounded_tables(n, k.device, matmul_dtype)
+    _, _, _, _, tr, ti = ct_tables(n, k.device)
+    ar = k.reshape(*k.shape[:-1], n1, n2).to(matmul_dtype).float()
+    br, bi = torch.matmul(d1r, ar), torch.matmul(d1i, ar)
+    cr = (br * tr - bi * ti).to(matmul_dtype).float()
+    ci = (br * ti + bi * tr).to(matmul_dtype).float()
+    return (torch.matmul(cr, d2r) - torch.matmul(ci, d2i),
+            torch.matmul(cr, d2i) + torch.matmul(ci, d2r))
+
+
 def _rfft_convolve_large_shared(
     signal: torch.Tensor,
     kernel: torch.Tensor,
@@ -214,9 +245,7 @@ def _rfft_convolve_large_shared(
     b, length = signal.shape
     rows = (b + 1) // 2
     sig = F.pad(signal, (0, n - length, 0, 2 * rows - b))
-    k = kernel[..., :kernel_len]
-    k = F.pad(k, (0, n - k.shape[-1]))
-    kr, ki = _ct_fwd_permuted(k, torch.zeros_like(k), n, matmul_dtype)
+    kr, ki = shared_kernel_spectrum(kernel, kernel_len, n, matmul_dtype)
     zr, zi = sig[0::2].contiguous(), sig[1::2].contiguous()
     if matmul_dtype == torch.bfloat16:
         from ddsp_tpu_torch.ops.cuda.ct_conv import ct_conv
@@ -254,8 +283,52 @@ def _overlap_save_plan(length: int, kernel_len: int, max_chunks: int = None) -> 
 
 def _circular_convolve(signal, kernel, kernel_len: int, n: int) -> torch.Tensor:
     """Float32 ``torch.fft`` circular convolution at n points, (..., n)."""
-    spec = torch.fft.rfft(signal, n=n) * torch.fft.rfft(kernel[..., :kernel_len], n=n)
+    return circular_convolve_spectrum(torch.fft.rfft(signal, n=n), kernel, kernel_len, n)
+
+
+def circular_convolve_spectrum(signal_spec, kernel, kernel_len: int, n: int) -> torch.Tensor:
+    """:func:`_circular_convolve` from the signal's n-point ``rfft``, which
+    a caller may keep (the reverb's forward keeps it for d/dkernel)."""
+    spec = signal_spec * torch.fft.rfft(kernel[..., :kernel_len], n=n)
     return torch.fft.irfft(spec, n=n)
+
+
+class OverlapSavePlan(NamedTuple):
+    """Where the bf16 route of :func:`rfft_convolve_same` puts (B, L) real
+    rows for a shared kernel of ``kernel_len`` taps: ``chunks`` blocks a
+    row, block i reading input samples [i c - lead, i c - lead + n) (zero
+    outside [0, L)) and keeping its outputs [lead, lead + c); block
+    (row, i) is real row ``row * chunks + i``, and real rows (2j, 2j+1)
+    ride complex row j (an odd count pads a zero row)."""
+
+    batch: int
+    length: int
+    n: int  # the transform size of a block
+    chunks: int
+    c: int  # outputs kept per block
+    lead: int  # the halo: kernel_len - 1 with chunks, else 0
+
+    @property
+    def rows(self) -> int:
+        """Complex rows."""
+        return (self.batch * self.chunks + 1) // 2
+
+
+def overlap_save_plan(batch: int, length: int, kernel_len: int) -> Optional[OverlapSavePlan]:
+    """The plan :func:`rfft_convolve_same` follows at a reduced matmul dtype
+    when its blocks go to the permuted transform (n > DIRECT_MAX), else
+    None (the blocks, or the whole rows, stay on float32 ``torch.fft``)."""
+    n = next_fft_size(length + kernel_len - 1)
+    if n <= DIRECT_MAX:
+        return None
+    k = _overlap_save_plan(length, kernel_len)
+    if k == 1:
+        return OverlapSavePlan(batch, length, n, 1, length, 0)
+    c = -(-length // k)
+    m = next_fft_size(c + kernel_len - 1)
+    if m <= DIRECT_MAX:
+        return None
+    return OverlapSavePlan(batch, length, m, k, c, kernel_len - 1)
 
 
 def _rfft_convolve_overlap_save(

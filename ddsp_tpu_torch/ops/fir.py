@@ -30,8 +30,10 @@ import numpy as np
 import torch
 
 from ddsp_tpu_torch.ops.fft import (
+    circular_convolve_spectrum,
     irfft_pair,
     next_fft_size,
+    overlap_save_plan,
     rfft_convolve_same,
     rfft_pair,
 )
@@ -203,36 +205,52 @@ class _FastGradConvolve(torch.autograd.Function):
     the other operand:
 
     * d/dsignal = flip(rfft_convolve_same(flip(g), kernel, kernel_len,
-      matmul_dtype)).  With one shared kernel row at reverb scale this is
-      the permuted-CT path in ``matmul_dtype``, and at bf16 the S1 kernel
-      (``ops/cuda/ct_conv.py``) on the card, which is the JAX package's
-      bf16 transpose computed as a convolution of the flipped cotangent;
+      matmul_dtype)), the JAX package's bf16 transpose computed as a
+      convolution of the flipped cotangent.  With one shared kernel row at
+      reverb scale at bf16 this is ``ops/cuda/ct_conv.ct_conv_dsignal``:
+      one launch of the S1 kernel on the card that reads g and writes
+      dsignal itself (the flips, the overlap-save blocks and the packing
+      of two rows a complex row in its index math), its plain version of
+      the same gather and scatter on the CPU; other shapes and dtypes take
+      ``rfft_convolve_same`` as written above;
     * d/dkernel = the float32 ``torch.fft`` correlation of g with the
       signal, summed over the batch for a shared kernel, zero past
-      ``kernel_len``.  S1's shared-spectrum form does not fit it (the
-      signal differs per row), so it stays a stock op, tighter than the
-      JAX package's bf16 d/dkernel.
+      ``kernel_len``, from the signal's spectrum that the forward kept
+      (one rfft, of g, in the backward).  S1's shared-spectrum form does
+      not fit it (the signal differs per row), so it stays a stock op,
+      tighter than the JAX package's bf16 d/dkernel.
     """
 
     @staticmethod
     def forward(ctx, signal, kernel, kernel_len: int, matmul_dtype):
-        ctx.save_for_backward(signal, kernel)
-        ctx.kernel_len, ctx.matmul_dtype = kernel_len, matmul_dtype
-        return rfft_convolve_same(signal, kernel, kernel_len)
+        length = signal.shape[-1]
+        n = next_fft_size(length + kernel_len - 1)
+        # rfft_convolve_same's float32 route, keeping the signal's spectrum
+        sig_spec = torch.fft.rfft(signal, n=n)
+        out = circular_convolve_spectrum(sig_spec, kernel, kernel_len, n)[..., :length]
+        ctx.save_for_backward(sig_spec if ctx.needs_input_grad[1] else None, kernel)
+        ctx.kernel_len, ctx.matmul_dtype, ctx.n = kernel_len, matmul_dtype, n
+        ctx.signal_shape = signal.shape
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        signal, kernel = ctx.saved_tensors
-        kernel_len = ctx.kernel_len
+        sig_spec, kernel = ctx.saved_tensors
+        kernel_len, n = ctx.kernel_len, ctx.n
         dsignal = dkernel = None
         if ctx.needs_input_grad[0]:
-            dsignal = rfft_convolve_same(
-                g.flip(-1), kernel, kernel_len, matmul_dtype=ctx.matmul_dtype
-            ).flip(-1)
+            plan = overlap_save_plan(*ctx.signal_shape, kernel_len)
+            if ctx.matmul_dtype == torch.bfloat16 and kernel.shape[0] == 1 and plan:
+                from ddsp_tpu_torch.ops.cuda.ct_conv import ct_conv_dsignal
+
+                dsignal = ct_conv_dsignal(g.contiguous(), kernel, kernel_len, plan)
+            else:
+                dsignal = rfft_convolve_same(
+                    g.flip(-1), kernel, kernel_len, matmul_dtype=ctx.matmul_dtype
+                ).flip(-1)
         if ctx.needs_input_grad[1]:
             width = min(kernel_len, kernel.shape[-1])
-            n = next_fft_size(signal.shape[-1] + kernel_len - 1)
-            spec = torch.fft.rfft(g, n=n) * torch.fft.rfft(signal, n=n).conj()
+            spec = torch.fft.rfft(g, n=n) * sig_spec.conj()
             if kernel.shape[0] == 1:
                 spec = spec.sum(0, keepdim=True)
             corr = torch.fft.irfft(spec, n=n)[..., :width]

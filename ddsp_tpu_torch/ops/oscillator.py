@@ -18,7 +18,10 @@ The audio-rate stage dispatches by device: ``render_hop_rows`` (one hop
 per serving slot) to ``ops/cuda/oscillator.osc_hop_slots``, and
 ``render_padded`` / ``oscillator_bank`` (offline frames, differentiable)
 to ``ops/cuda/osc_frames.render_from_phase`` -- the CUDA kernels for CUDA
-tensors, their plain PyTorch versions for CPU tensors.
+tensors, their plain PyTorch versions for CPU tensors.  Each takes a
+``fill``: 'exact' (every harmonic's own sine, the XLA path's function) or
+'rot' (the TPU kernels' rotation fill, ``ops/osc_fill.py``);
+``models/synths.osc_fill`` resolves it from ``Config.osc_impl``.
 """
 
 from __future__ import annotations
@@ -185,6 +188,7 @@ def render_padded(
     frame_chunk: Optional[int] = None,
     h_start: int = 0,
     normalize_amps: bool = True,
+    fill: str = "exact",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render audio from frame-rate controls that carry 1 frame of context.
 
@@ -199,6 +203,7 @@ def render_padded(
         (as the JAX package's Pallas path ignores it).
       h_start: harmonic-number offset of ``amps_pad``'s slice of the bank.
       normalize_amps: apply the Nyquist mask and renormalisation here.
+      fill: the sine fill, 'exact' or 'rot' (forward and backward).
 
     Returns:
       (audio (B, T*hop), final fundamental phase (B,)).
@@ -219,12 +224,12 @@ def render_padded(
     final_phase = phase1[:, -1, -1]
     loudp = loud_pad[..., 0]
     if phase1.device.type != "cpu" or frame_chunk is None or frame_chunk >= t:
-        return render_from_phase(phase1, amps_pad, loudp, h_start), final_phase
+        return render_from_phase(phase1, amps_pad, loudp, h_start, fill), final_phase
     if t % frame_chunk:
         raise ValueError(f"frame_chunk {frame_chunk} must divide T={t}")
 
     def chunk(ph, amps, loud):
-        return render_from_phase(ph, amps, loud, h_start)
+        return render_from_phase(ph, amps, loud, h_start, fill)
 
     parts = []
     for i in range(0, t, frame_chunk):
@@ -245,11 +250,13 @@ def oscillator_bank(
     hop: int,
     initial_phase: Optional[torch.Tensor] = None,
     frame_chunk: Optional[int] = None,
+    fill: str = "exact",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Offline additive synthesis from frame-rate controls.
 
     Args:
       f0: (B, T, 1) Hz.  harm_amps: (B, T, H).  loudness: (B, T, 1).
+      fill: the sine fill ('exact' or 'rot'), as in :func:`render_padded`.
 
     Returns:
       (audio (B, T*hop), final fundamental phase (B,)), with
@@ -264,6 +271,7 @@ def oscillator_bank(
         hop=hop,
         initial_phase=initial_phase,
         frame_chunk=frame_chunk,
+        fill=fill,
     )
 
 
@@ -275,6 +283,7 @@ def render_hop_rows(
     sample_rate: int,
     hop: int,
     initial_phase: torch.Tensor,  # (N,) per-row fundamental phase, cycles
+    fill: str = "exact",  # the sine fill, 'exact' or 'rot'
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render ONE hop for N independent rows (the serving case).
 
@@ -297,5 +306,6 @@ def render_hop_rows(
         amps_n[:, 2].contiguous(),
         loud_pad[..., 0].contiguous(),
         w,
+        fill=fill,
     )
     return audio, phase1[:, -1, -1]

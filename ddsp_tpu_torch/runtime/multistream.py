@@ -32,6 +32,7 @@ from ddsp_tpu_torch.models.controller import Decoder, controller_apply
 from ddsp_tpu_torch.models.crepe import Crepe
 from ddsp_tpu_torch.models.synths import (
     ReverbLiveState,
+    osc_fill,
     reverb_ir_spectra,
     reverb_live,
     reverb_live_init,
@@ -131,6 +132,7 @@ def _render_slots(params: Decoder, conf: Config, ir_spec, row_keys, prev, cur,
             sample_rate=conf.sample_rate,
             hop=conf.hop_length,
             initial_phase=phase,
+            fill=osc_fill(conf.osc_impl, phase.device),
         )
     with record_function("noise"):
         offsets = torch.clamp(n_seen - 1, min=0)

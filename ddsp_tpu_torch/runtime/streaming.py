@@ -26,6 +26,7 @@ from ddsp_tpu_torch.models.controller import Decoder, controller_apply
 from ddsp_tpu_torch.models.crepe import Crepe, crepe_forward, pitch_argmax
 from ddsp_tpu_torch.models.synths import (
     ReverbLiveState,
+    osc_fill,
     reverb_ir_spectra,
     reverb_live,
     reverb_live_init,
@@ -80,6 +81,7 @@ def _render_hop(params: Decoder, state: SynthStreamState, next_ctrl, conf: Confi
         sample_rate=conf.sample_rate,
         hop=conf.hop_length,
         initial_phase=state.phase,
+        fill=osc_fill(conf.osc_impl, state.phase.device),
     )
     noise = filtered_noise(
         state.pending["H"], noise_key, conf.hop_length,

@@ -121,6 +121,7 @@ def launches(name: str) -> int:
 
 def reset_launches() -> None:
     osc_slots.LAUNCHES = osc_cheb.LAUNCHES = 0
+    osc_slots.VARIANT_LAUNCHES.clear()
     osc_banked_bwd.BWD_LAUNCHES = osc_banked_bwd.FILL_LAUNCHES = 0
     osc_frames.FWD_LAUNCHES = osc_frames.BWD_LAUNCHES = 0
     osc_frames.VARIANT_LAUNCHES.clear()
