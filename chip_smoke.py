@@ -147,8 +147,7 @@ KERNEL_SNR_FLOOR_DB = 90.0
 # stream's own scale, max(1, peak |audio|): at full width the seeded
 # random reverb (a 44,100-tap IR) lifts the audio to a peak of ~30 and
 # with it the float32 rounding that cuBLAS and cuDNN leave between batch 1
-# and batch 256 (max |err| 4.2e-7-4.8e-7 at a dry peak of ~0.9, 9.4e-6-
-# 1.0e-5 wet, on the H100).
+# and batch 256 (9.5e-6 to 1.0e-5 absolute on an H100).
 SLOT_ATOL = 1e-5
 # H100 SXM peaks at 700 W (NVIDIA data sheet): fp32 outside the tensor
 # cores, and HBM3 bandwidth.
