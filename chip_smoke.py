@@ -12,7 +12,9 @@ Phases, each of which must pass (any failure exits non-zero):
    rotation fill of ``_kernel_banked``) is held against its plain PyTorch
    version on that fill at the serving shape (N=256, hop 512, H=180) and
    at a ragged shape (N=13, hop 128, H=40), SNR > 90 dB, and so is its
-   exact fill ('xla'); all are timed with CUDA events beside the bound;
+   exact fill ('xla'); all are timed with CUDA events beside the bound,
+   the kernel also inside a CUDA graph (its device time: a call from
+   Python takes longer on the host than the kernel on the card);
 3. the serving step at full default width: ``MultiStreamServer`` with 256
    slots and seeded random weights for 100 hops of tone plus noise.  The
    kernel's launch count must grow by one per hop, all on the rotation fill
@@ -257,6 +259,31 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls captured in one CUDA
+    graph and replayed: the kernels' time without their Python wrapper's
+    host time, which bounds ``cuda_ms`` for calls shorter than it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def tone_blocks(n_streams: int, n_hops: int, hop: int, sample_rate: int, seed: int):
     """(n_hops, N, hop) float32: a tone per stream (110-880 Hz) plus noise."""
     rng = np.random.default_rng(seed)
@@ -334,18 +361,22 @@ def phase_kernel(device):
             require(snr > KERNEL_SNR_FLOOR_DB,
                     f"kernel ({fill}) vs plain SNR {snr:.2f} dB <= {KERNEL_SNR_FLOOR_DB} at "
                     f"{(n, hop, h)}")
-            kernel_ms = cuda_ms(lambda: osc_cuda.osc_hop_slots(*inputs, fill=fill), iters=200)
+            call_ms = cuda_ms(lambda: osc_cuda.osc_hop_slots(*inputs, fill=fill), iters=200)
+            kernel_ms = graph_ms(lambda: osc_cuda.osc_hop_slots(*inputs, fill=fill), iters=200)
             plain_ms = cuda_ms(
                 lambda: osc_cuda.render_hop_slots_plain(*inputs, fill=fill), iters=20)
             bound_ms, bound_by = kernel_bound_ms(n, hop, h)
             log(f"[kernel] N={n} hop={hop} H={h} fill={fill}: SNR {snr:.2f} dB, max |err| "
-                f"{err:.3e}, kernel {kernel_ms:.5f} ms, plain {plain_ms:.5f} ms, "
-                f"bound {bound_ms:.5f} ms ({bound_by})")
+                f"{err:.3e}, kernel {kernel_ms:.5f} ms (in a CUDA graph; {call_ms:.5f} ms a "
+                f"call from Python), plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
+                f"({bound_by})")
             if n == N_SLOTS and fill == "rot":
-                result = dict(snr_db=snr, max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                              bound_ms=bound_ms, bound_by=bound_by, fill="rot")
+                result = dict(snr_db=snr, max_abs_err=err, ms=kernel_ms, call_ms=call_ms,
+                              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                              fill="rot")
             elif n == N_SLOTS:
-                result["exact_fill"] = dict(snr_db=snr, ms=kernel_ms, plain_ms=plain_ms)
+                result["exact_fill"] = dict(snr_db=snr, ms=kernel_ms, call_ms=call_ms,
+                                            plain_ms=plain_ms)
     log("[kernel] library_ms: null -- no single PyTorch call computes a harmonic "
         "sine-bank sum; the nearest is the plain einsum version timed above")
     return result
@@ -1472,15 +1503,20 @@ def check_dsignal(device):
     for name in ("plain", "kernel", "unfused", "library", "library", "unfused", "kernel", "plain"):
         runs[name].append(cuda_ms(fns[name], CT_ITERS))
     ms = {k: float(np.mean(v)) for k, v in runs.items()}
+    # its device time without the host's: the call's plain operations (the
+    # kernel's permuted spectrum) launch faster from a graph
+    graph = {k: graph_ms(fns[k], CT_ITERS) for k in ("kernel", "unfused", "library")}
     bound, bound_by = dsignal_bound_ms(plan.rows, plan.n, b, length)
     log(f"[ct-conv] fused d/dsignal at ({b}, {length}), {taps} taps ({plan.chunks} chunks of "
         f"{plan.n}, {plan.rows} complex rows): vs plain {snr:.2f} dB (max |err| {err:.3e}), "
         f"bit-equal on rerun; kernel {ms['kernel']:.5f} ms, the unfused route through S1 "
         f"{ms['unfused']:.5f} ms, plain {ms['plain']:.5f} ms, cuFFT float32 correlation "
-        f"{ms['library']:.5f} ms, bound {bound:.5f} ms ({bound_by}); runs {runs}")
+        f"{ms['library']:.5f} ms, bound {bound:.5f} ms ({bound_by}); runs {runs}; in a "
+        f"CUDA graph: kernel {graph['kernel']:.5f} ms, unfused {graph['unfused']:.5f} ms, "
+        f"cuFFT {graph['library']:.5f} ms")
     return dict(snr_db=snr, max_abs_err=err, ms=ms["kernel"], plain_ms=ms["plain"],
                 unfused_ms=ms["unfused"], library_ms=ms["library"], bound_ms=bound,
-                bound_by=bound_by, runs_ms=runs)
+                bound_by=bound_by, runs_ms=runs, graph_ms=graph)
 
 
 def phase_ct_conv(device):
