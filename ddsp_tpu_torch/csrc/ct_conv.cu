@@ -93,39 +93,18 @@
 // the three-launch path (ct_stage_kernel, ct_middle_kernel; wmma
 // 16x16x16, intermediates C and R in bf16 in device memory).
 //
-// Where its time goes (utils/ct_conv_phases.py, which stamps the phases of
-// a 16-row call on an H100): stages 1 and 3, the two that read the peers'
-// tiles over distributed shared memory, take about 60 % of it, the middle
-// stage's two parts about 30 %.  Left for later: peers pushing their tiles
-// (cp.async.bulk between CTAs, mbarriers) or a deeper register prefetch,
-// 128 columns a step, TMA feeding a ring of D tiles.
+// Where its time goes (a build that stamped the global timer at each
+// phase boundary, not kept): stages 1 and 3, the two that read the peers'
+// tiles over distributed shared memory, take most of it, the middle
+// stage's two parts most of the rest.  Left for later: peers pushing
+// their tiles (cp.async.bulk between CTAs, mbarriers) or a deeper
+// register prefetch, 128 columns a step, TMA feeding a ring of D tiles.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
-
-// A measurement build (-DCT_CONV_STAMPS, utils/ct_conv_phases.py) stamps
-// the global timer at the cluster kernel's phase boundaries, per CTA.
-#ifdef CT_CONV_STAMPS
-constexpr int kStamps = 8;
-constexpr int kStampedCtas = 1024;
-__device__ unsigned long long g_ct_stamps[kStampedCtas * kStamps];
-#define CT_STAMP(k)                                                            \
-  do {                                                                         \
-    const unsigned cta = blockIdx.y * gridDim.x + blockIdx.x;                  \
-    if (threadIdx.x == 0 && cta < kStampedCtas) {                              \
-      unsigned long long now;                                                  \
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));                  \
-      g_ct_stamps[cta * kStamps + (k)] = now;                                  \
-    }                                                                          \
-  } while (0)
-#else
-#define CT_STAMP(k) \
-  do {              \
-  } while (0)
-#endif
 
 namespace {
 
@@ -455,7 +434,6 @@ ct_cluster_kernel(IO io, const float* __restrict__ kr, const float* __restrict__
                   const bf16* __restrict__ d1r, const bf16* __restrict__ d1i,
                   const bf16* __restrict__ d2r, const bf16* __restrict__ d2i,
                   const float* __restrict__ tr, const float* __restrict__ ti, int n1, int n2) {
-  CT_STAMP(0);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   constexpr int kPlane = kNB * kTileBytes;
@@ -496,7 +474,6 @@ ct_cluster_kernel(IO io, const float* __restrict__ kr, const float* __restrict__
         make_uint4(w[0], w[1], w[2], w[3]);
   }
   cluster.sync();  // every slice in place
-  CT_STAMP(1);
 
   // Both warpgroups post their sums; then each finishes half the chunk's
   // elements (accumulator registers 16 wg .. 16 wg + 15) with both parts at
@@ -548,7 +525,6 @@ ct_cluster_kernel(IO io, const float* __restrict__ kr, const float* __restrict__
     }
   });
   cluster.sync();  // every peer has read this CTA's A slice: X is free
-  CT_STAMP(2);
 
   // ---- middle, part 1: W = bf16((C D2) . K) into X, 64 columns of k2 at a
   // time; D2 is symmetric, so D2 tile (k2 rows, b deep) is row-major D2
@@ -573,7 +549,6 @@ ct_cluster_kernel(IO io, const float* __restrict__ kr, const float* __restrict__
     }
   });
 
-  CT_STAMP(3);
   // ---- middle, part 2: R = bf16((W conj(D2)) . conj(T)) over C, as stage
   // 3's B operand (row b, depth k1), 64 columns of b at a time
   run_phase<kNB, kMiddle2>(cluster, c, d2r, d2i, [&](int bc, float (&acc)[32]) {
@@ -594,9 +569,7 @@ ct_cluster_kernel(IO io, const float* __restrict__ kr, const float* __restrict__
       *reinterpret_cast<bf16*>(c.yb + kPlane + off) = ri;
     }
   });
-  CT_STAMP(4);
   cluster.sync();  // every R in place
-  CT_STAMP(5);
 
   // ---- stage 3: y = conj(D1) R / n; each warpgroup stages its part's
   // 64 x 64 chunk in shared memory and stores it row by row
@@ -611,9 +584,7 @@ ct_cluster_kernel(IO io, const float* __restrict__ kr, const float* __restrict__
       if (a < n1 && b < n2) io.store(row, c.wg, a * n2 + b, stage[(idx >> 6) * kStageLd + (idx & 63)]);
     }
   });
-  CT_STAMP(6);
   cluster.sync();  // the peers have read this CTA's R
-  CT_STAMP(7);
 }
 
 template <int kNB, class IO>
@@ -1053,11 +1024,3 @@ extern "C" int ct_conv_dsignal(const float* g, float* dsig, const float* kr, con
   return static_cast<int>(dispatch_cluster(io, kr, ki, d1r, d1i, d2r, d2i, tr, ti, rows, n1, n2,
                                            static_cast<cudaStream_t>(stream)));
 }
-
-#ifdef CT_CONV_STAMPS
-// The stamps of the last cluster launch: kStamps a CTA, CTA (row, j) at
-// row * ceil(n1 / 64) + j, for the first kStampedCtas CTAs.
-extern "C" int ct_conv_stamps(unsigned long long* out) {
-  return static_cast<int>(cudaMemcpyFromSymbol(out, g_ct_stamps, sizeof(g_ct_stamps)));
-}
-#endif

@@ -17,10 +17,11 @@ three launches for larger ones; a CPU tensor takes the plain version
 :func:`ct_conv_plain`; anything else, and a dtype, layout or size the
 kernel does not take, raises.
 
-``ct_conv_dsignal`` is the reverb's bf16 d/dsignal on the same kernel:
-it reads the cotangent g and writes dsignal itself, the flips, the
-overlap-save blocks and the packing of two rows a complex row folded into
-the kernel's loads and stores (``DsignalIO``); its plain version,
+``ct_conv_dsignal`` is the reverb's bf16 d/dsignal on the same kernel's
+cluster path (rows of n1 <= 512, n2 <= 256): it reads the cotangent g and
+writes dsignal itself, the flips, the overlap-save blocks and the packing
+of two rows a complex row folded into the kernel's loads and stores
+(``DsignalIO``); its plain version,
 :func:`ct_conv_dsignal_plain`, does the same gather and scatter with index
 tensors.  ``LAUNCHES`` counts calls that launched the kernel, through
 either entry, and nothing else; ``DSIGNAL_LAUNCHES`` those of the fused
@@ -171,13 +172,10 @@ def _launch_dsignal(g, kr, ki, plan: OverlapSavePlan) -> torch.Tensor:
     if len({g.device, kr.device, ki.device}) != 1:
         raise ValueError("ct_conv_dsignal inputs lie on different devices")
     n1, n2 = _split_factors(n)
-    if not on_chip(n1, n2):
-        # rows too large for a cluster: the three-launch kernel between the
-        # plain version's gather and scatter
-        return _dsignal_by_index(g, plan, lambda zr, zi: _launch(zr, zi, kr, ki, n))
-    if n1 % 32 or n2 % 32 or plan.rows > MAX_ROWS:
-        raise ValueError(f"ct_conv_dsignal takes (n1, n2) in multiples of 32 and at most "
-                         f"{MAX_ROWS} rows, got {(n1, n2)} and {plan.rows}")
+    if n1 % 32 or n2 % 32 or not on_chip(n1, n2) or plan.rows > MAX_ROWS:
+        raise ValueError(f"ct_conv_dsignal takes (n1, n2) in multiples of 32 with n1 <= "
+                         f"{CLUSTER_MAX_N1}, n2 <= {CLUSTER_MAX_N2} and at most {MAX_ROWS} "
+                         f"rows, got {(n1, n2)} and {plan.rows}")
     if any(x.dtype != torch.float32 or not x.is_contiguous() or x.numel() != n
            or x.data_ptr() % 16 for x in (kr, ki)) or g.data_ptr() % 16:
         raise ValueError("ct_conv_dsignal takes the contiguous, 16-byte aligned float32 "
@@ -206,8 +204,10 @@ def ct_conv_dsignal(g, kernel, kernel_len: int, plan: Optional[OverlapSavePlan] 
     one shared kernel row (1, >= kernel_len) on its overlap-save ``plan``
     (``ops/fft.overlap_save_plan``, made here if not given): the kernel's
     permuted spectrum is one plain transform, then one launch of S1 that
-    gathers flip(g)'s blocks and writes dsignal itself on CUDA tensors, or
-    :func:`ct_conv_dsignal_plain` on CPU tensors.  Returns (B, L)."""
+    gathers flip(g)'s blocks and writes dsignal itself on CUDA tensors
+    (plans whose rows take the cluster path, :func:`on_chip`; others
+    raise), or :func:`ct_conv_dsignal_plain` on CPU tensors.  Returns
+    (B, L)."""
     if plan is None:
         plan = overlap_save_plan(*g.shape, kernel_len)
     if plan is None or g.dim() != 2 or tuple(g.shape) != (plan.batch, plan.length):

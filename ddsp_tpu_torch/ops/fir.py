@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ddsp_tpu_torch.ops.fft import (
+    _split_factors,
     circular_convolve_spectrum,
     irfft_pair,
     next_fft_size,
@@ -207,7 +208,8 @@ class _FastGradConvolve(torch.autograd.Function):
     * d/dsignal = flip(rfft_convolve_same(flip(g), kernel, kernel_len,
       matmul_dtype)), the JAX package's bf16 transpose computed as a
       convolution of the flipped cotangent.  With one shared kernel row at
-      reverb scale at bf16 this is ``ops/cuda/ct_conv.ct_conv_dsignal``:
+      reverb scale at bf16, on an overlap-save plan whose rows take S1's
+      one-launch cluster path, this is ``ops/cuda/ct_conv.ct_conv_dsignal``:
       one launch of the S1 kernel on the card that reads g and writes
       dsignal itself (the flips, the overlap-save blocks and the packing
       of two rows a complex row in its index math), its plain version of
@@ -239,10 +241,11 @@ class _FastGradConvolve(torch.autograd.Function):
         kernel_len, n = ctx.kernel_len, ctx.n
         dsignal = dkernel = None
         if ctx.needs_input_grad[0]:
-            plan = overlap_save_plan(*ctx.signal_shape, kernel_len)
-            if ctx.matmul_dtype == torch.bfloat16 and kernel.shape[0] == 1 and plan:
-                from ddsp_tpu_torch.ops.cuda.ct_conv import ct_conv_dsignal
+            from ddsp_tpu_torch.ops.cuda.ct_conv import ct_conv_dsignal, on_chip
 
+            plan = overlap_save_plan(*ctx.signal_shape, kernel_len)
+            if (ctx.matmul_dtype == torch.bfloat16 and kernel.shape[0] == 1 and plan
+                    and on_chip(*_split_factors(plan.n))):
                 dsignal = ct_conv_dsignal(g.contiguous(), kernel, kernel_len, plan)
             else:
                 dsignal = rfft_convolve_same(

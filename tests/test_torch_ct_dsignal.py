@@ -7,7 +7,8 @@
   (a zero row packed), with one block a row (k = 1) and with two and three
   overlap-save chunks, with a kernel shorter than ``kernel_len``; and so
   does the d/dsignal of ``fft_convolve(grad_matmul_dtype='bfloat16')``,
-  which takes it.
+  which takes it where the plan's rows take S1's cluster path
+  (``on_chip``) and the unfused route elsewhere.
 * ``overlap_save_plan`` follows ``rfft_convolve_same``'s dispatch: None
   where that stays on float32 ``torch.fft``; ``shared_kernel_spectrum``
   (the real kernel's bf16 permuted spectrum in half the products) equals
@@ -81,6 +82,28 @@ def test_fft_convolve_bf16_dsignal_takes_fused_entry(b, length, taps, kernel_len
     want_dh = torch.nn.functional.pad(torch.fft.irfft(spec, n=n)[..., :width], (0, taps - width))
     assert torch.equal(dh, want_dh)
     assert torch.equal(y.detach(), fft.rfft_convolve_same(x, h, kernel_len))
+
+
+def test_bf16_dsignal_takes_fused_entry_only_on_cluster_rows(monkeypatch):
+    """The backward calls the fused entry when the plan's rows take S1's
+    cluster path (``on_chip``), else the unfused route; both give the
+    same values on the CPU."""
+    b, length, taps, kernel_len, _ = CASES[1]
+    g, h, x = _operands(b, length, taps, seed=11)
+    calls = []
+    fused = s1.ct_conv_dsignal
+    monkeypatch.setattr(s1, "ct_conv_dsignal", lambda *a: calls.append(a[-1]) or fused(*a))
+
+    def dsignal():
+        xs = x.clone().requires_grad_(True)
+        y = fft_convolve(xs, h, kernel_len, grad_matmul_dtype="bfloat16")
+        return torch.autograd.grad(y, [xs], g)[0]
+
+    assert torch.equal(dsignal(), _unfused(g, h, kernel_len))
+    assert calls == [fft.overlap_save_plan(b, length, kernel_len)]
+    monkeypatch.setattr(s1, "on_chip", lambda n1, n2: False)
+    assert torch.equal(dsignal(), _unfused(g, h, kernel_len))
+    assert len(calls) == 1
 
 
 def test_per_row_kernel_dkernel_from_kept_spectrum():
