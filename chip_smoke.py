@@ -60,8 +60,10 @@ Phases, each of which must pass (any failure exits non-zero):
    samples, n_fft 256 and 64): forward SNR > 90 dB, the backward within
    the JAX suite's bf16 criterion (max |diff| <= 5e-3 max |g|, cosine >
    0.9999), two backward runs bit-equal; per size and summed over the six,
-   the kernels, the plain versions and torch.stft + |X|^2 (forward and
-   autograd backward) timed with CUDA events beside the bounds;
+   the kernels (K4: its recompute and shifted-product launches), the plain
+   versions and torch.stft + |X|^2 (forward and autograd backward) timed
+   with CUDA events beside the bounds, a call from Python and (the kernels
+   always, torch.stft where it captures) replayed from a CUDA graph;
 9. one finetune step at full width, batch 2, on the kernel route
    (``set_stft_impl('pallas')``, bf16 loss spectrograms, weighted pitch
    decode), card (K1-K4) vs CPU (plain versions) from the same weights,
@@ -72,7 +74,8 @@ Phases, each of which must pass (any failure exits non-zero):
 10. the training CLI at full width on the kernel route: 10 decoder steps,
    then ``--finetune_crepe=10 --pitch_decode=weighted`` at batch 16.  The
    K3 and K4 launches must equal the counts derived from the steps, sizes
-   and cached target batches, S1's its 20 steps (through the fused
+   and cached target batches (K4's recompute launches equal to K4's),
+   S1's its 20 steps (through the fused
    d/dsignal), K1/K2 on the rotation fill; every logged loss is
    finite; the finetune
    checkpoint restores with equal parameters, CREPE and its BatchNorm
@@ -835,17 +838,19 @@ def stft_operands(b: int, length: int, n_fft: int, device, seed: int):
 
 
 def stft_bounds_ms(b: int, n_blocks: int, hop: int, n_frames: int, n_fft: int):
-    """(forward, backward) bounds, each (ms, "operations" | "bytes"): the
+    """(forward, backward) bounds of the kernels as ``StftPower`` runs them,
+    on the bf16 copy of xb, each (ms, "operations" | "bytes"): the
     forward's 4 B T n_fft bins flops (re and im products) at the bf16
-    tensor-core peak, or its bytes (xb and the bf16 matrices in, |S|^2
+    tensor-core peak, or its bytes (bf16 xb and matrices in, float32 |S|^2
     out); the backward twice the flops (the re/im recompute and the
-    transposed products), reading xb, dmag and the matrices, writing dxb."""
+    transposed products), reading bf16 xb and matrices and float32 dmag,
+    writing float32 dxb."""
     bins = n_fft // 2 + 1
     flops = 4 * b * n_frames * n_fft * bins
-    x_bytes, mag_bytes, w_bytes = 4 * b * n_blocks * hop, 4 * b * n_frames * bins, 2 * 2 * n_fft * bins
+    samples, mag_bytes, w_bytes = b * n_blocks * hop, 4 * b * n_frames * bins, 2 * 2 * n_fft * bins
     out = []
-    for f, n_bytes in ((flops, x_bytes + w_bytes + mag_bytes),
-                       (2 * flops, 2 * x_bytes + w_bytes + mag_bytes)):
+    for f, n_bytes in ((flops, 2 * samples + w_bytes + mag_bytes),
+                       (2 * flops, (2 + 4) * samples + w_bytes + mag_bytes)):
         t_ops, t_bytes = f / PEAK_BF16_FLOPS, n_bytes / PEAK_BYTES_PER_S
         out.append((1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"))
     return out
@@ -888,10 +893,25 @@ def check_stft(device, b: int, length: int, n_fft: int, seed: int):
         bwd_err=float(np.abs(g_np - wg_np).max()), bwd_rel=bwd_rel, cos=cos)
 
 
+def try_graph_ms(fn, iters: int, what: str):
+    """``graph_ms`` of ``fn``, or None with a log line where ``fn`` will
+    not capture in a CUDA graph (its call time stays the timing)."""
+    try:
+        return graph_ms(fn, iters)
+    except Exception as exc:  # noqa: BLE001 -- what capture refuses varies by call
+        log(f"[stft] {what} does not capture in a CUDA graph ({type(exc).__name__}: "
+            f"{str(exc).splitlines()[0][:160]}); its call time stands alone")
+        import torch
+
+        torch.cuda.synchronize()
+        return None
+
+
 def phase_stft(device):
     """K3 / K4 against their plain versions at the training shape (all six
     MSS sizes) and a ragged one, timed beside their bounds, the plain
-    versions and torch.stft."""
+    versions and torch.stft: each a call from Python and, where it
+    captures, replayed from a CUDA graph."""
     import torch
 
     from ddsp_tpu_torch.ops.cuda import stft
@@ -904,6 +924,7 @@ def phase_stft(device):
     for n_fft in STFT_FFTS:
         (x, xb, hop, n_frames, dmag), agree = check_stft(device, b, length, n_fft, seed=n_fft)
         window = hann_window(n_fft, torch.float32, device)
+        xq = xb.to(torch.bfloat16)  # StftPower's one cast; both kernels read it
 
         def library_fwd():
             spec = torch.stft(x, n_fft, hop_length=hop, window=window, center=True,
@@ -916,52 +937,75 @@ def phase_stft(device):
         lib_mag = lib_out.real * lib_out.real + lib_out.imag * lib_out.imag
         lib_dmag = dmag.transpose(1, 2).contiguous()
         (fb_ms, fb_by), (bb_ms, bb_by) = stft_bounds_ms(b, xb.shape[1], hop, n_frames, n_fft)
+        k3 = lambda: stft.stft_power_fwd(xq, n_fft, hop, n_frames)  # noqa: E731
+        k3_cast = lambda: stft.stft_power_fwd(xb, n_fft, hop, n_frames)  # noqa: E731
+        k4 = lambda: stft.stft_power_bwd(xq, dmag, n_fft, hop, n_frames)  # noqa: E731
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            lib_mag, leaf, lib_dmag, retain_graph=True)
         row = dict(
             n_fft=n_fft, hop=hop, frames=n_frames, **agree,
-            fwd_ms=cuda_ms(lambda: stft.stft_power_fwd(xb, n_fft, hop, n_frames), iters=20),
-            bwd_ms=cuda_ms(lambda: stft.stft_power_bwd(xb, dmag, n_fft, hop, n_frames), iters=10),
+            fwd_ms=cuda_ms(k3, iters=20), bwd_ms=cuda_ms(k4, iters=10),
+            fwd_graph_ms=graph_ms(k3, iters=20), bwd_graph_ms=graph_ms(k4, iters=10),
+            cast_ms=cuda_ms(lambda: xb.to(torch.bfloat16), iters=20),
+            fwd_cast_ms=cuda_ms(k3_cast, iters=20), fwd_cast_graph_ms=graph_ms(k3_cast, iters=20),
             plain_fwd_ms=cuda_ms(lambda: stft.stft_power_plain(xb, n_fft, hop, n_frames), iters=10),
             plain_bwd_ms=cuda_ms(
                 lambda: stft.stft_power_bwd_plain(xb, dmag, n_fft, hop, n_frames), iters=10),
             library_fwd_ms=cuda_ms(library_fwd, iters=20),
-            library_bwd_ms=cuda_ms(
-                lambda: torch.autograd.grad(lib_mag, leaf, lib_dmag, retain_graph=True), iters=20),
+            library_bwd_ms=cuda_ms(lib_bwd, iters=20),
+            library_fwd_graph_ms=try_graph_ms(library_fwd, 20, f"torch.stft at {n_fft}"),
+            library_bwd_graph_ms=try_graph_ms(
+                lib_bwd, 20, f"torch.stft's autograd backward at {n_fft}"),
             fwd_bound_ms=fb_ms, fwd_bound_by=fb_by, bwd_bound_ms=bb_ms, bwd_bound_by=bb_by)
-        log(f"[stft] n_fft={n_fft}: K3 {row['fwd_ms']:.5f} ms (bound {fb_ms:.5f}, {fb_by}; "
-            f"plain {row['plain_fwd_ms']:.5f}; torch.stft+|X|^2 {row['library_fwd_ms']:.5f}), "
-            f"K4 {row['bwd_ms']:.5f} ms (bound {bb_ms:.5f}, {bb_by}; plain "
-            f"{row['plain_bwd_ms']:.5f}; torch.stft autograd backward {row['library_bwd_ms']:.5f})")
+        log(f"[stft] n_fft={n_fft}: K3 {row['fwd_ms']:.5f} ms a call, {row['fwd_graph_ms']:.5f} "
+            f"in a graph (bound {fb_ms:.5f}, {fb_by}; plain {row['plain_fwd_ms']:.5f}; "
+            f"torch.stft+|X|^2 {row['library_fwd_ms']:.5f}, in a graph "
+            f"{row['library_fwd_graph_ms']}), K4 {row['bwd_ms']:.5f} ms a call, "
+            f"{row['bwd_graph_ms']:.5f} in a graph (bound {bb_ms:.5f}, {bb_by}; plain "
+            f"{row['plain_bwd_ms']:.5f}; torch.stft autograd backward "
+            f"{row['library_bwd_ms']:.5f}, in a graph {row['library_bwd_graph_ms']}); "
+            f"the bf16 cast of xb {row['cast_ms']:.5f}; K3 with the cast, on float32 xb as "
+            f"torch.stft takes it, {row['fwd_cast_ms']:.5f} ms a call, "
+            f"{row['fwd_cast_graph_ms']:.5f} in a graph")
         rows.append(row)
-        del x, xb, dmag, leaf, lib_out, lib_mag, lib_dmag
+        del x, xb, xq, dmag, leaf, lib_out, lib_mag, lib_dmag
         torch.cuda.empty_cache()
-    total = {k: sum(r[k] for r in rows) for k in (
-        "fwd_ms", "bwd_ms", "plain_fwd_ms", "plain_bwd_ms", "library_fwd_ms",
-        "library_bwd_ms", "fwd_bound_ms", "bwd_bound_ms")}
-    log(f"[stft] six sizes summed (B={b}, L={length}): K3 {total['fwd_ms']:.5f} ms (bound "
-        f"{total['fwd_bound_ms']:.5f}, plain {total['plain_fwd_ms']:.5f}, torch.stft "
-        f"{total['library_fwd_ms']:.5f}); K4 {total['bwd_ms']:.5f} ms (bound "
-        f"{total['bwd_bound_ms']:.5f}, plain {total['plain_bwd_ms']:.5f}, torch.stft backward "
-        f"{total['library_bwd_ms']:.5f})")
+    keys = ("fwd_ms", "bwd_ms", "fwd_graph_ms", "bwd_graph_ms", "cast_ms", "fwd_cast_ms",
+            "fwd_cast_graph_ms", "plain_fwd_ms",
+            "plain_bwd_ms", "library_fwd_ms", "library_bwd_ms", "library_fwd_graph_ms",
+            "library_bwd_graph_ms", "fwd_bound_ms", "bwd_bound_ms")
+    total = {k: (None if any(r[k] is None for r in rows) else sum(r[k] for r in rows))
+             for k in keys}
+    log(f"[stft] six sizes summed (B={b}, L={length}): K3 {total['fwd_ms']:.5f} ms a call, "
+        f"{total['fwd_graph_ms']:.5f} in a graph (bound {total['fwd_bound_ms']:.5f}, plain "
+        f"{total['plain_fwd_ms']:.5f}, torch.stft {total['library_fwd_ms']:.5f}, in a graph "
+        f"{total['library_fwd_graph_ms']}); K4 {total['bwd_ms']:.5f} ms a call, "
+        f"{total['bwd_graph_ms']:.5f} in a graph (bound {total['bwd_bound_ms']:.5f}, plain "
+        f"{total['plain_bwd_ms']:.5f}, torch.stft backward {total['library_bwd_ms']:.5f}, in a "
+        f"graph {total['library_bwd_graph_ms']}); the casts {total['cast_ms']:.5f}; K3 with "
+        f"the cast {total['fwd_cast_ms']:.5f} ms a call, {total['fwd_cast_graph_ms']:.5f} in a "
+        f"graph")
 
     def bound_by(kind):  # the kind that binds most of the summed bound
         ops = sum(r[f"{kind}_bound_ms"] for r in rows if r[f"{kind}_bound_by"] == "operations")
         return "operations" if ops >= total[f"{kind}_bound_ms"] / 2 else "bytes"
 
-    per_scale = [{k: r[k] for k in ("n_fft", "hop", "frames", "fwd_ms", "bwd_ms", "fwd_bound_ms",
-                                    "bwd_bound_ms", "library_fwd_ms", "library_bwd_ms")}
-                 for r in rows]
+    per_scale = [{k: r[k] for k in ("n_fft", "hop", "frames") + keys} for r in rows]
     return {
         "stft_power_fwd": dict(
             snr_db=min(r["fwd_snr"] for r in rows), max_abs_err=max(r["fwd_err"] for r in rows),
-            ms=total["fwd_ms"], plain_ms=total["plain_fwd_ms"], bound_ms=total["fwd_bound_ms"],
-            bound_by=bound_by("fwd"), library_ms=total["library_fwd_ms"],
+            ms=total["fwd_ms"], graph_ms=total["fwd_graph_ms"], plain_ms=total["plain_fwd_ms"],
+            bound_ms=total["fwd_bound_ms"], bound_by=bound_by("fwd"),
+            library_ms=total["library_fwd_ms"], library_graph_ms=total["library_fwd_graph_ms"],
+            with_cast_ms=total["fwd_cast_ms"], with_cast_graph_ms=total["fwd_cast_graph_ms"],
             library="torch.stft(center=True, pad_mode='reflect', window=hann) then |X|^2, "
                     "six sizes summed", per_scale=per_scale),
         "stft_power_bwd": dict(
             snr_db=min(r["bwd_snr"] for r in rows), max_abs_err=max(r["bwd_err"] for r in rows),
             max_rel_err=max(r["bwd_rel"] for r in rows), min_cosine=min(r["cos"] for r in rows),
-            ms=total["bwd_ms"], plain_ms=total["plain_bwd_ms"], bound_ms=total["bwd_bound_ms"],
-            bound_by=bound_by("bwd"), library_ms=total["library_bwd_ms"],
+            ms=total["bwd_ms"], graph_ms=total["bwd_graph_ms"], plain_ms=total["plain_bwd_ms"],
+            bound_ms=total["bwd_bound_ms"], bound_by=bound_by("bwd"),
+            library_ms=total["library_bwd_ms"], library_graph_ms=total["library_bwd_graph_ms"],
             library="autograd backward of the torch.stft + |X|^2 above, six sizes summed"),
     }
 
@@ -1120,7 +1164,7 @@ def phase_finetune_cli(device, auto_ms: float):
     set_stft_impl("pallas")
     try:
         # the main path from here
-        stft.FWD_LAUNCHES = stft.BWD_LAUNCHES = 0
+        stft.FWD_LAUNCHES = stft.BWD_LAUNCHES = stft.BWD_RECOMPUTE_LAUNCHES = 0
         osc_frames.FWD_LAUNCHES = osc_frames.BWD_LAUNCHES = 0
         osc_frames.VARIANT_LAUNCHES.clear()
         ct_conv.LAUNCHES = ct_conv.DSIGNAL_LAUNCHES = 0
@@ -1130,6 +1174,7 @@ def phase_finetune_cli(device, auto_ms: float):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"stft_power_fwd": stft.FWD_LAUNCHES, "stft_power_bwd": stft.BWD_LAUNCHES,
+                    "stft_power_bwd_recompute": stft.BWD_RECOMPUTE_LAUNCHES,
                     "osc_frames_fwd": osc_frames.FWD_LAUNCHES,
                     "osc_frames_bwd": osc_frames.BWD_LAUNCHES, "ct_conv": ct_conv.LAUNCHES,
                     "ct_conv_dsignal": ct_conv.DSIGNAL_LAUNCHES,
@@ -1160,13 +1205,17 @@ def phase_finetune_cli(device, auto_ms: float):
         want_bwd = 2 * FT_CLI_STEPS * n_sizes
         log(f"[finetune-cli] {n} examples, target spectra cached: {cached}; K3 launched "
             f"{launches['stft_power_fwd']} times (expected {want_fwd}), K4 "
-            f"{launches['stft_power_bwd']} (expected {want_bwd}); K1 {launches['osc_frames_fwd']}, "
+            f"{launches['stft_power_bwd']} (expected {want_bwd}), its recompute "
+            f"{launches['stft_power_bwd_recompute']}; K1 {launches['osc_frames_fwd']}, "
             f"K2 {launches['osc_frames_bwd']}, S1 {launches['ct_conv']} (expected "
             f"{2 * FT_CLI_STEPS})")
         require(launches["stft_power_fwd"] == want_fwd,
                 f"K3 launched {launches['stft_power_fwd']} times, expected {want_fwd}")
         require(launches["stft_power_bwd"] == want_bwd,
                 f"K4 launched {launches['stft_power_bwd']} times, expected {want_bwd}")
+        require(launches["stft_power_bwd_recompute"] == launches["stft_power_bwd"],
+                f"K4's recompute launched {launches['stft_power_bwd_recompute']} times, its "
+                f"shifted product {launches['stft_power_bwd']}")
         # one bf16 reverb backward a decoder step and a finetune step
         require(launches["ct_conv"] == launches["ct_conv_dsignal"] == 2 * FT_CLI_STEPS,
                 f"S1 launched {launches['ct_conv']} times ({launches['ct_conv_dsignal']} "
@@ -1675,6 +1724,7 @@ def main() -> int:
             name=name, route="cuda", source="ddsp_tpu_torch/csrc/stft_power.cu",
             replaces=f"ddsp_tpu/ops/pallas/stft.py:{line}", tpu_function=tpu,
             launches=ft_launches[name], **stft_kernels[name]))
+    kernels[-1]["launches_recompute"] = ft_launches["stft_power_bwd_recompute"]
     osc_tpu = "ddsp_tpu/ops/pallas/oscillator.py"
     sources = {  # kernel: (source in csrc/, the TPU kernel it replaces, its function)
         "osc_cheb_fwd": ("osc_cheb.cu", f"{osc_tpu}:317", "_kernel_cheb"),

@@ -106,6 +106,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "hopper_mma.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -133,58 +135,6 @@ constexpr size_t cluster_smem(int nb) {
   return static_cast<size_t>(4 * nb + 8) * kTileBytes + 2 * kXfHalf * sizeof(float) + 1024;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of element (r, k) of a 64-deep K-major tile with the 128-byte
-// swizzle: 16-byte chunk k / 8 of row r lands at chunk (k / 8) ^ (r % 8).
-__device__ __forceinline__ int swz(int r, int k) {
-  return r * 128 + ((((k >> 3) ^ r) & 7) << 4) + (k & 7) * 2;
-}
-
-// wgmma shared-memory descriptor of a 1024-byte aligned K-major tile, rows
-// 128 bytes apart with the 128-byte swizzle: stride 1024 bytes between
-// 8-row groups, leading offset unused.  k16 step s adds 32 s bytes.
-__device__ __forceinline__ uint64_t desc(const void* tile) {
-  const uint64_t addr = smem_u32(tile);
-  return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Orders the generic-proxy stores of this thread into shared memory before
-// the async proxy (wgmma) reads them.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// Pins the accumulators' order against the asynchronous products.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d = (scale_d ? d : 0) + A (64 x 16) B (16 x 64), both from shared memory.
-__device__ __forceinline__ void wgmma64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
 // acc = (acc + a0 b0) +- a1 b1, each product over 64 of K (4 k16 steps
 // from zero into its own partial sum; the two started back to back), added
 // in with round-to-nearest: the sign of the second is the complex
@@ -201,9 +151,9 @@ __device__ __forceinline__ void mma_pair(float (&acc)[32], const unsigned char* 
   fence_regs(p1);
   wgmma_fence();
 #pragma unroll
-  for (int s = 0; s < 4; ++s) wgmma64(p0, da0 + 2 * s, db0 + 2 * s, s);
+  for (int s = 0; s < 4; ++s) wgmma_bf16<64>(p0, da0 + 2 * s, db0 + 2 * s, s);
 #pragma unroll
-  for (int s = 0; s < 4; ++s) wgmma64(p1, da1 + 2 * s, db1 + 2 * s, s);
+  for (int s = 0; s < 4; ++s) wgmma_bf16<64>(p1, da1 + 2 * s, db1 + 2 * s, s);
   wgmma_commit();
   wgmma_wait_all();
   fence_regs(p0);
@@ -213,33 +163,6 @@ __device__ __forceinline__ void mma_pair(float (&acc)[32], const unsigned char* 
     const float x = __fadd_rn(acc[i], p0[i]);
     acc[i] = kSub ? __fsub_rn(x, p1[i]) : __fadd_rn(x, p1[i]);
   }
-}
-
-// The (row, column) of accumulator register v of thread t (0..127) of a
-// warpgroup: m64nNk16's layout.
-__device__ __forceinline__ int frag_row(int t, int v) {
-  return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((v >> 1) & 1);
-}
-__device__ __forceinline__ int frag_col(int t, int v) {
-  return 8 * (v >> 2) + 2 * (t & 3) + (v & 1);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
-  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
-  return l | (h << 16);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Starts the asynchronous copy of D[row0 + r, col0 + k] (r, k < 64) of a

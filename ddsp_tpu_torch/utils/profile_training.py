@@ -87,6 +87,7 @@ def _counts():
         "osc_frames_bwd": osc_frames.BWD_LAUNCHES,
         "stft_power_fwd": stft.FWD_LAUNCHES,
         "stft_power_bwd": stft.BWD_LAUNCHES,
+        "stft_power_bwd_recompute": stft.BWD_RECOMPUTE_LAUNCHES,
     }
 
 
