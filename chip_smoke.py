@@ -27,13 +27,17 @@ Phases, each of which must pass (any failure exits non-zero):
 4. the socket server: ``StreamServer`` at full width on a unix socket, four
    concurrent clients streaming 1 s each, each equal to its slot driven
    through ``MultiStreamServer``;
-5. the frame oscillator kernels ``osc_frames_fwd`` / ``osc_frames_bwd`` on
-   the card's default rotation fill against their plain versions on that
-   fill, at the training shape
+5. the frame oscillator kernels ``osc_frames_fwd`` (K1) / ``osc_frames_bwd``
+   (K2 and its overlap-add kernel) on the card's default rotation fill
+   against their plain versions on that fill, at the training shape
    (B=16, T=172, hop 512, H=180, h_start 0) and a ragged one (B=2, T=18,
    hop 128, H=40, h_start 8): forward SNR > 90 dB, each gradient > 80 dB,
-   two backward runs bit-equal; kernels and plain versions timed with CUDA
-   events beside the bounds, the exact fill's kernels beside them;
+   two backward runs bit-equal, the overlap-add kernel bit-equal to its
+   plain version; K1, K2 with its overlap-add, K2 alone and the
+   overlap-add timed with CUDA events a call and replayed from a CUDA
+   graph, beside the bounds, the plain versions, ``torch.index_add`` for
+   the overlap-add and the exact fill's kernels; the ptxas registers and
+   spills of ``osc_frames.cu``'s kernels logged;
 6. one train step at full ``Config()`` width, batch 2, on the float32
    reverb route (``reverb_grad_matmul_dtype='float32'``, as in phases 9
    and 12, which this phase's criterion was set on), on the card
@@ -46,9 +50,10 @@ Phases, each of which must pass (any failure exits non-zero):
    since one Adam step moves a parameter by at most lr = 1e-3;
 7. the training CLI at full width: ``ddsp_tpu_torch.training.train.main``
    on synthetic WAV files, batch 16, 30 steps in windows of 10, a
-   checkpoint every 10 steps.  The backward kernel must launch once per
-   step and the forward kernel once per step plus once per
-   reconstruction dump, every launch on the rotation fill; the default
+   checkpoint every 10 steps.  The backward kernel and its overlap-add
+   must launch once per step and the forward kernel once per step plus
+   once per reconstruction dump, every launch on the rotation fill; the
+   default
    bf16 reverb backward launches S1 (``ct_conv``) once per step, through
    the fused d/dsignal entry; every logged loss is finite; the last checkpoint
    restores with equal parameters; median ms per step is printed.
@@ -76,7 +81,8 @@ Phases, each of which must pass (any failure exits non-zero):
    K3 and K4 launches must equal the counts derived from the steps, sizes
    and cached target batches (K4's recompute launches equal to K4's),
    S1's its 20 steps (through the fused
-   d/dsignal), K1/K2 on the rotation fill; every logged loss is
+   d/dsignal), K1/K2 on the rotation fill, K2's overlap-add once per K2
+   launch; every logged loss is
    finite; the finetune
    checkpoint restores with equal parameters, CREPE and its BatchNorm
    statistics included; median ms per finetune step, and per decoder step
@@ -540,27 +546,82 @@ def frame_operands(b: int, t: int, hop: int, h: int, h_start: int, device, seed:
 
 
 def frame_bounds_ms(b: int, t: int, hop: int, h: int):
-    """(forward, backward) bounds: each a (ms, "operations" | "bytes")."""
+    """(forward, backward, overlap-add) bounds: each a (ms, "operations" |
+    "bytes")."""
     points = b * t * hop * h
     samples, rows = b * t * hop, b * (t + 2)
     fwd_bytes = 4 * (samples + rows * h + rows + 3 * hop + samples)
     # in: g, phase, amps_pad, loud_pad, w; out: dphase, d amps_pad, d loud_pad
     bwd_bytes = 4 * (2 * samples + rows * h + rows + 3 * hop + samples + rows * h + rows)
+    # in: da_win, dl_win; out: d amps_pad, d loud_pad (two adds an output)
+    oa_bytes, oa_flop = 4 * (b * t * 3 * (h + 1) + rows * (h + 1)), 2 * rows * (h + 1)
     out = []
     for flop, n_bytes in ((FLOP_PER_POINT * points, fwd_bytes),
-                          (FLOP_PER_POINT_BWD * points, bwd_bytes)):
+                          (FLOP_PER_POINT_BWD * points, bwd_bytes), (oa_flop, oa_bytes)):
         t_ops, t_bytes = flop / PEAK_FP32_FLOPS, n_bytes / PEAK_BYTES_PER_S
         out.append((1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"))
     return out
 
 
+def ptxas_report(name: str) -> dict:
+    """{kernel: {registers, spill_stores, spill_loads, stack}} from the
+    ``-Xptxas -v`` report of ``csrc/<name>.cu``'s build, the kernels named
+    by their template arguments (``osc_frames_bwd_kernel<fill=rot,bf16=0>``)."""
+    import re
+
+    from ddsp_tpu_torch.ops.cuda import build
+
+    fills = ("exact", "rot", "cheb8")  # osc::Fill
+    report, entry = {}, None
+    for line in build.build(name).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            mangled = m.group(1)
+            # ..._13_osc_frames_cu_5f1431cc21osc_frames_bwd_kernelILi1ELb0EE...
+            t = re.search(r"\d(osc_[a-z_]+_kernel)(?:ILi(\d)ELb([01])E)?", mangled)
+            entry = (mangled if t is None else t.group(1) if t.group(2) is None
+                     else f"{t.group(1)}<fill={fills[int(t.group(2))]},bf16={t.group(3)}>")
+            report[entry] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and entry:
+            report[entry].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                 spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            report[entry]["registers"] = int(m.group(1))
+    return report
+
+
+def overlap_add_library(da_win, dl_win, t: int):
+    """The overlap-add as PyTorch's ``index_add`` (one call a tensor, on
+    zeros): timed beside the kernel, used nowhere in the port."""
+    import torch
+
+    b, _, _, h = da_win.shape
+    rows = (torch.arange(t, device=da_win.device)[:, None]
+            + torch.arange(3, device=da_win.device)).reshape(-1)  # window (t, k) -> row t + k
+    zeros_a = torch.zeros((b, t + 2, h), device=da_win.device)
+    zeros_l = torch.zeros((b, t + 2), device=da_win.device)
+    return lambda: (torch.index_add(zeros_a, 1, rows, da_win.reshape(b, 3 * t, h)),
+                    torch.index_add(zeros_l, 1, rows, dl_win.reshape(b, 3 * t)))
+
+
 def phase_frames(device):
     """K1 and K2 on the card's default fill (rot) against their plain
-    versions on that fill; the exact fill's kernel times beside them."""
+    versions on that fill, K2's overlap-add bit-equal to its plain version;
+    times a call and in a CUDA graph, K2's kernel also alone; the exact
+    fill's kernel times beside them."""
     import torch
 
     from ddsp_tpu_torch.ops.cuda import osc_frames
 
+    regs = ptxas_report("osc_frames")
+    for kernel, r in regs.items():
+        log(f"[frames] ptxas {kernel}: {r.get('registers')} registers, "
+            f"{r.get('spill_stores')} B spill stores, {r.get('spill_loads')} B spill loads, "
+            f"{r.get('stack')} B stack")
     result = {}
     for b, t, hop, h, h_start in FRAME_SHAPES:
         shape = f"B={b} T={t} hop={hop} H={h} h_start={h_start}"
@@ -568,7 +629,16 @@ def phase_frames(device):
         got = osc_frames.osc_frames_fwd(phase, amps, loud, h_start, fill="rot")
         grads = osc_frames.osc_frames_bwd(g, phase, amps, loud, h_start, fill="rot")
         again = osc_frames.osc_frames_bwd(g, phase, amps, loud, h_start, fill="rot")
+        _, da_win, dl_win = osc_frames.osc_frames_bwd_windows(
+            g, phase, amps, loud, h_start, fill="rot")
+        overlap = osc_frames.osc_overlap_add(da_win, dl_win, t)
+        overlap_plain = osc_frames.overlap_add_windows(da_win, dl_win, t)
         torch.cuda.synchronize()
+        for name, a, c in zip(("d amps_pad", "d loud_pad"), overlap_plain, overlap):
+            require(torch.equal(a.view(torch.int32), c.view(torch.int32)),
+                    f"the overlap-add kernel's {name} is not bit-equal to its plain version "
+                    f"at {shape}")
+        oa_err = max(float((a - c).abs().max()) for a, c in zip(overlap_plain, overlap))
         want = osc_frames.render_from_phase_variant_plain(phase, amps, loud, h_start, "rot")
         want_grads = osc_frames.render_from_phase_bwd_variant_plain(
             g, phase, amps, loud, h_start, "rot")
@@ -587,12 +657,17 @@ def phase_frames(device):
             grad_err[name] = float(np.abs(c_np - a_np).max())
             require(grad_snr[name] > GRAD_SNR_FLOOR_DB,
                     f"{name} vs plain SNR {grad_snr[name]:.2f} dB <= {GRAD_SNR_FLOOR_DB} at {shape}")
-        del want, want_grads, got, grads, again
-        fwd_ms = cuda_ms(
-            lambda: osc_frames.osc_frames_fwd(phase, amps, loud, h_start, fill="rot"), iters=20)
-        bwd_ms = cuda_ms(
-            lambda: osc_frames.osc_frames_bwd(g, phase, amps, loud, h_start, fill="rot"),
-            iters=20)
+        del want, want_grads, got, grads, again, overlap, overlap_plain
+        fwd = lambda: osc_frames.osc_frames_fwd(phase, amps, loud, h_start, fill="rot")  # noqa: E731
+        bwd = lambda: osc_frames.osc_frames_bwd(  # noqa: E731
+            g, phase, amps, loud, h_start, fill="rot")
+        bwd_alone = lambda: osc_frames.osc_frames_bwd_windows(  # noqa: E731
+            g, phase, amps, loud, h_start, fill="rot")
+        oa = lambda: osc_frames.osc_overlap_add(da_win, dl_win, t)  # noqa: E731
+        fwd_ms, bwd_ms = cuda_ms(fwd, iters=20), cuda_ms(bwd, iters=20)
+        alone_ms, oa_ms = cuda_ms(bwd_alone, iters=20), cuda_ms(oa, iters=20)
+        fwd_graph, bwd_graph = graph_ms(fwd, iters=20), graph_ms(bwd, iters=20)
+        alone_graph, oa_graph = graph_ms(bwd_alone, iters=20), graph_ms(oa, iters=20)
         exact_ms = [cuda_ms(lambda: osc_frames.osc_frames_fwd(phase, amps, loud, h_start),
                             iters=20),
                     cuda_ms(lambda: osc_frames.osc_frames_bwd(g, phase, amps, loud, h_start),
@@ -603,28 +678,49 @@ def phase_frames(device):
         plain_bwd_ms = cuda_ms(
             lambda: osc_frames.render_from_phase_bwd_variant_plain(
                 g, phase, amps, loud, h_start, "rot"), iters=3, warmup=1)
-        (fb_ms, fb_by), (bb_ms, bb_by) = frame_bounds_ms(b, t, hop, h)
+        oa_plain_ms = cuda_ms(lambda: osc_frames.overlap_add_windows(da_win, dl_win, t), iters=20)
+        oa_library = overlap_add_library(da_win, dl_win, t)
+        oa_library_ms = cuda_ms(oa_library, iters=20)
+        (fb_ms, fb_by), (bb_ms, bb_by), (ob_ms, ob_by) = frame_bounds_ms(b, t, hop, h)
         log(f"[frames] {shape}: forward SNR {fwd_snr:.2f} dB, max |err| {fwd_err:.3e}, "
-            f"kernel {fwd_ms:.5f} ms, plain {plain_ms:.5f} ms, bound {fb_ms:.5f} ms ({fb_by})")
+            f"kernel {fwd_ms:.5f} ms a call, {fwd_graph:.5f} in a graph, plain "
+            f"{plain_ms:.5f} ms, bound {fb_ms:.5f} ms ({fb_by})")
         log(f"[frames] {shape}: backward SNR " + ", ".join(
             f"{k} {v:.2f} dB (max |err| {grad_err[k]:.3e})" for k, v in grad_snr.items())
-            + f"; bit-equal on rerun; kernel {bwd_ms:.5f} ms, plain backward "
-            f"{plain_bwd_ms:.5f} ms, bound {bb_ms:.5f} ms ({bb_by})")
+            + f"; bit-equal on rerun; kernel + overlap-add {bwd_ms:.5f} ms a call, "
+            f"{bwd_graph:.5f} in a graph; kernel alone {alone_ms:.5f} / {alone_graph:.5f}; "
+            f"plain backward {plain_bwd_ms:.5f} ms, bound {bb_ms:.5f} ms ({bb_by})")
+        log(f"[frames] {shape}: overlap-add bit-equal to its plain version; kernel "
+            f"{oa_ms:.5f} ms a call, {oa_graph:.5f} in a graph; plain (8 launches) "
+            f"{oa_plain_ms:.5f} ms; torch.index_add x2 {oa_library_ms:.5f} ms; bound "
+            f"{ob_ms:.5f} ms ({ob_by})")
         log(f"[frames] {shape}: the exact fill ('xla'), for the record: forward "
             f"{exact_ms[0]:.5f} ms, backward {exact_ms[1]:.5f} ms")
         if (b, t, hop, h, h_start) == FRAME_SHAPES[0]:
             result["osc_frames_fwd"] = dict(
-                snr_db=fwd_snr, max_abs_err=fwd_err, ms=fwd_ms, plain_ms=plain_ms,
-                bound_ms=fb_ms, bound_by=fb_by, fill="rot", exact_fill_ms=exact_ms[0])
+                snr_db=fwd_snr, max_abs_err=fwd_err, ms=fwd_ms, graph_ms=fwd_graph,
+                plain_ms=plain_ms, bound_ms=fb_ms, bound_by=fb_by, fill="rot",
+                exact_fill_ms=exact_ms[0],
+                ptxas={k: v for k, v in regs.items() if k.startswith("osc_frames_fwd")})
             result["osc_frames_bwd"] = dict(
                 snr_db=min(grad_snr.values()), max_abs_err=max(grad_err.values()),
                 grad_snr_db=grad_snr, grad_max_abs_err=grad_err, ms=bwd_ms,
+                graph_ms=bwd_graph, kernel_alone_ms=alone_ms, kernel_alone_graph_ms=alone_graph,
                 plain_ms=plain_bwd_ms, bound_ms=bb_ms, bound_by=bb_by, fill="rot",
-                exact_fill_ms=exact_ms[1])
-        del phase, amps, loud, g
+                exact_fill_ms=exact_ms[1], timed="the kernel and its overlap-add (ms, "
+                "graph_ms); the kernel alone (kernel_alone_ms, kernel_alone_graph_ms)",
+                ptxas={k: v for k, v in regs.items() if k.startswith("osc_frames_bwd")})
+            result["osc_frames_overlap_add"] = dict(
+                max_abs_err=oa_err, bit_equal=True, ms=oa_ms, graph_ms=oa_graph,
+                plain_ms=oa_plain_ms, bound_ms=ob_ms, bound_by=ob_by,
+                library_ms=oa_library_ms, library="torch.index_add on zeros, once for "
+                "d amps_pad and once for d loud_pad (atomic sums: not bit-equal)",
+                ptxas=regs.get("osc_frames_overlap_add_kernel"))
+        del phase, amps, loud, g, da_win, dl_win
         torch.cuda.empty_cache()
-    log("[frames] library_ms: null -- no single PyTorch call computes a harmonic "
-        "sine-bank render or its gradient; the nearest is the plain version timed above")
+    log("[frames] library_ms: null for K1 and K2 -- no single PyTorch call computes a "
+        "harmonic sine-bank render or its gradient; the nearest is the plain version timed "
+        "above")
     return result
 
 
@@ -766,6 +862,7 @@ def phase_training(device):
             f"--device={device.type}"]
     stdout = io.StringIO()
     osc_frames.FWD_LAUNCHES = osc_frames.BWD_LAUNCHES = 0  # the main path from here
+    osc_frames.OVERLAP_LAUNCHES = 0
     osc_frames.VARIANT_LAUNCHES.clear()
     stft.FWD_LAUNCHES = stft.BWD_LAUNCHES = 0
     ct_conv.LAUNCHES = ct_conv.DSIGNAL_LAUNCHES = 0
@@ -776,6 +873,7 @@ def phase_training(device):
     wall = time.perf_counter() - t0
     fwd, bwd, s1 = osc_frames.FWD_LAUNCHES, osc_frames.BWD_LAUNCHES, ct_conv.LAUNCHES
     fused, by_variant = ct_conv.DSIGNAL_LAUNCHES, dict(osc_frames.VARIANT_LAUNCHES)
+    overlap = osc_frames.OVERLAP_LAUNCHES
     rot = {k: osc_frames.variant_name(k, "rot") for k in ("osc_frames_fwd", "osc_frames_bwd")}
     require(by_variant == {rot["osc_frames_fwd"]: fwd, rot["osc_frames_bwd"]: bwd},
             f"the default train path launched {by_variant}, not K1/K2 on the rotation fill")
@@ -793,6 +891,7 @@ def phase_training(device):
     dumps = len([f for f in os.listdir(os.path.join(ckpt_dir, "audio")) if f.endswith(".wav")])
     n_dump = dumps // 2  # each dump forward writes two examples
     require(bwd == TRAIN_STEPS, f"backward kernel launched {bwd} times in {TRAIN_STEPS} steps")
+    require(overlap == bwd, f"K2's overlap-add launched {overlap} times, K2 {bwd}")
     require(s1 == TRAIN_STEPS, f"S1 (ct_conv) launched {s1} times in {TRAIN_STEPS} steps")
     require(fwd == TRAIN_STEPS + n_dump,
             f"forward kernel launched {fwd} times for {TRAIN_STEPS} steps + {n_dump} dump(s)")
@@ -809,12 +908,12 @@ def phase_training(device):
     log(f"[train] {TRAIN_STEPS} steps at batch {conf.batch_size}, full width: "
         f"{wall:.1f} s in all (features, {len(rows)} windows, checkpoints, {n_dump} dump); "
         f"losses {[round(r['loss_mean'], 4) for r in rows]}; "
-        f"forward kernel {fwd} launches, backward kernel {bwd} ({by_variant}), S1 {s1} "
-        f"(fused d/dsignal {fused})")
+        f"forward kernel {fwd} launches, backward kernel {bwd} ({by_variant}), its "
+        f"overlap-add {overlap}, S1 {s1} (fused d/dsignal {fused})")
     log(f"[train] steady state: median {ms:.3f} ms per train step over windows 2-{len(rows)} "
         f"({1e3 / ms:.2f} steps/s); checkpoint {os.path.basename(latest)} restores equal")
-    return {"osc_frames_fwd": fwd, "osc_frames_bwd": bwd, "ct_conv": s1,
-            "ct_conv_dsignal": fused, "by_variant": by_variant}, ms
+    return {"osc_frames_fwd": fwd, "osc_frames_bwd": bwd, "osc_frames_overlap_add": overlap,
+            "ct_conv": s1, "ct_conv_dsignal": fused, "by_variant": by_variant}, ms
 
 
 # --------------------------------------------------------------- phase 8
@@ -1165,7 +1264,7 @@ def phase_finetune_cli(device, auto_ms: float):
     try:
         # the main path from here
         stft.FWD_LAUNCHES = stft.BWD_LAUNCHES = stft.BWD_RECOMPUTE_LAUNCHES = 0
-        osc_frames.FWD_LAUNCHES = osc_frames.BWD_LAUNCHES = 0
+        osc_frames.FWD_LAUNCHES = osc_frames.BWD_LAUNCHES = osc_frames.OVERLAP_LAUNCHES = 0
         osc_frames.VARIANT_LAUNCHES.clear()
         ct_conv.LAUNCHES = ct_conv.DSIGNAL_LAUNCHES = 0
         t0 = time.perf_counter()
@@ -1176,7 +1275,9 @@ def phase_finetune_cli(device, auto_ms: float):
         launches = {"stft_power_fwd": stft.FWD_LAUNCHES, "stft_power_bwd": stft.BWD_LAUNCHES,
                     "stft_power_bwd_recompute": stft.BWD_RECOMPUTE_LAUNCHES,
                     "osc_frames_fwd": osc_frames.FWD_LAUNCHES,
-                    "osc_frames_bwd": osc_frames.BWD_LAUNCHES, "ct_conv": ct_conv.LAUNCHES,
+                    "osc_frames_bwd": osc_frames.BWD_LAUNCHES,
+                    "osc_frames_overlap_add": osc_frames.OVERLAP_LAUNCHES,
+                    "ct_conv": ct_conv.LAUNCHES,
                     "ct_conv_dsignal": ct_conv.DSIGNAL_LAUNCHES,
                     "by_variant": dict(osc_frames.VARIANT_LAUNCHES)}
         for line in stdout.getvalue().splitlines():
@@ -1224,6 +1325,9 @@ def phase_finetune_cli(device, auto_ms: float):
         require(launches["by_variant"] == {rot["osc_frames_fwd"]: launches["osc_frames_fwd"],
                                            rot["osc_frames_bwd"]: launches["osc_frames_bwd"]},
                 f"the finetune path launched {launches['by_variant']}, not K1/K2 on rot")
+        require(launches["osc_frames_overlap_add"] == launches["osc_frames_bwd"],
+                f"K2's overlap-add launched {launches['osc_frames_overlap_add']} times, K2 "
+                f"{launches['osc_frames_bwd']}")
 
         ft_dir = os.path.join(ckpt_dir, "finetune")
         latest = trainer.latest_checkpoint(ft_dir)
@@ -1293,7 +1397,7 @@ def variant_bound_ms(kernel: str, b: int, t: int, hop: int, h: int):
     K7 the forward's, K5 over B*T rows its own, K6 the larger of its fill
     at the fp32 peak and its contractions at the bf16 peak (or its bytes),
     S2 its fill (or its bytes)."""
-    (fwd_ms, fwd_by), (bwd_ms, bwd_by) = frame_bounds_ms(b, t, hop, h)
+    (fwd_ms, fwd_by), (bwd_ms, bwd_by), _ = frame_bounds_ms(b, t, hop, h)
     if kernel.startswith("osc_frames_fwd") or kernel == "osc_cheb_fwd":
         return fwd_ms, fwd_by
     if kernel.startswith("osc_frames_bwd"):
@@ -1718,6 +1822,13 @@ def main() -> int:
             launches=train_launches[name], launches_by_variant={
                 k: v for k, v in train_launches["by_variant"].items() if k.startswith(name)},
             library_ms=None, library=no_library, **frames[name]))
+    kernels.append(dict(
+        name="osc_frames_overlap_add", route="cuda", source="ddsp_tpu_torch/csrc/osc_frames.cu",
+        replaces="ddsp_tpu/ops/pallas/oscillator.py:777", tpu_function="_kernel_banked2_bwd "
+        "(the overlap-add of its window gradients, _pallas_backward :1048-1052, XLA code "
+        "around the kernel)", launches=train_launches["osc_frames_overlap_add"],
+        launches_finetune_cli=ft_launches["osc_frames_overlap_add"],
+        **frames["osc_frames_overlap_add"]))
     for name, line, tpu in (("stft_power_fwd", 113, "_fwd_kernel"),
                             ("stft_power_bwd", 139, "_bwd_kernel")):
         kernels.append(dict(

@@ -4,8 +4,9 @@
 // _fill_sine_banks_cheb8 :104, _fill_sine_banks_cat_range :237 and
 // _fill_sine_banks_rot_logdepth :266).
 //
-// A thread holds one tile of 8 consecutive harmonics of its sample,
-// harmonic h0 + 8g + i + 1 in slot i of tile g, and steps g = 0, 1, 2, ...:
+// TileFill: a thread holds one tile of 8 consecutive harmonics of its
+// sample, harmonic h0 + 8g + i + 1 in slot i of tile g, and steps
+// g = 0, 1, 2, ...:
 //
 //   kExact  every harmonic from its own split-precision phase;
 //   kRot    the first tile of each chunk seeded exactly, later ones rotated
@@ -17,6 +18,12 @@
 // (__fmul_rn / __fadd_rn / __fsub_rn, which nvcc never fuses), as the JAX
 // code and the plain torch version do: along a 23-tile chain a fused
 // multiply-add would round differently at every step.
+//
+// SlotFill is one slot i of that tile: the same arithmetic on the same
+// values for harmonic h0 + 8g + i + 1, so its sines and cosines are
+// TileFill's, bit for bit.  Its caller holds the sample's split phase and
+// rotor (which all 8 slots of a sample share) and a SeedClock, which
+// says which tiles are seeded exactly.
 
 #pragma once
 
@@ -101,6 +108,75 @@ struct TileFill {
           cp[i] = c[i];
         }
       }
+    }
+  }
+};
+
+// TileFill::tile's seeding rule as a counter, stepped once a tile: tile g
+// is seeded exactly if kExact, if g % chunk == 0 (kRot), or if
+// (g % chunk) % resync < 2 (kCheb8).  No integer division in the loop.
+struct SeedClock {
+  int gc = 0, gr = 0, chunk, resync;  // gc = g % chunk, gr = gc % resync
+
+  __device__ __forceinline__ SeedClock(int chunk_tiles, int resync_tiles)
+      : chunk(chunk_tiles), resync(resync_tiles) {}
+
+  template <int kFill>
+  __device__ __forceinline__ bool seeded() const {
+    return kFill == kExact || (kFill == kRot ? gc == 0 : gr < 2);
+  }
+
+  __device__ __forceinline__ void next() {
+    if (++gc == chunk) {
+      gc = 0;
+      gr = 0;
+    } else if (++gr == resync) {
+      gr = 0;
+    }
+  }
+};
+
+template <int kFill, bool kCos>
+struct SlotFill {
+  float s, c;      // this tile's sine and cosine
+  float sp, cp;    // kCheb8: tile g - 1
+  float spp, cpp;  // kCheb8: tile g - 2
+
+  // An exact seed: harmonic h (an integer as float) of the phase hi + lo.
+  __device__ __forceinline__ void seed(float hi, float lo, float h) {
+    const float a = kTwoPi * harmonic_frac(hi, lo, h);
+    if (kCos || kFill == kRot) {
+      sincosf(a, &s, &c);
+    } else {
+      s = sinf(a);
+    }
+    if (kFill == kCheb8) push();
+  }
+
+  // The next tile from the last: kRot rotates by the rotor (s8, c8);
+  // kCheb8 recurs with two_c8 = 2 cos 8x (s8 unused).
+  __device__ __forceinline__ void advance(float s8, float c8_or_two_c8) {
+    if constexpr (kFill == kRot) {
+      const float c8 = c8_or_two_c8;
+      const float sn = __fadd_rn(__fmul_rn(s, c8), __fmul_rn(c, s8));
+      const float cn = __fsub_rn(__fmul_rn(c, c8), __fmul_rn(s, s8));
+      s = sn;
+      c = cn;
+    } else if constexpr (kFill == kCheb8) {
+      const float two_c8 = c8_or_two_c8;
+      s = __fsub_rn(__fmul_rn(two_c8, sp), spp);
+      if (kCos) c = __fsub_rn(__fmul_rn(two_c8, cp), cpp);
+      push();
+    }
+  }
+
+ private:
+  __device__ __forceinline__ void push() {
+    spp = sp;
+    sp = s;
+    if (kCos) {
+      cpp = cp;
+      cp = c;
     }
   }
 };

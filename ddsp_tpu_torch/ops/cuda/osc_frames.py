@@ -9,9 +9,11 @@ phase stage, without the TPU's padding:
   (B, T+2), the (hop, 3) hop weights and an integer ``h_start``
   (``amps_pad[..., i]`` drives harmonic ``h_start + i + 1``);
 * ``osc_frames_fwd`` launches the forward kernel: audio (B, T*hop);
-* ``osc_frames_bwd`` launches the backward kernel and overlap-adds its
-  per-window gradients onto the padded frame axis: (dphase (B, T, hop),
-  d amps_pad (B, T+2, H), d loud_pad (B, T+2));
+* ``osc_frames_bwd`` launches the backward kernel
+  (``osc_frames_bwd_windows``: dphase and the per-window gradients) and
+  the overlap-add kernel (``osc_overlap_add``, bit-equal to its plain
+  version ``overlap_add_windows``), which sums those onto the padded frame
+  axis: (dphase (B, T, hop), d amps_pad (B, T+2, H), d loud_pad (B, T+2));
 * ``OscFrames`` joins the two in one ``torch.autograd.Function``;
 * ``render_from_phase(..., fill)`` dispatches by device: a CUDA tensor
   takes ``OscFrames``, a CPU tensor the plain version of the same fill
@@ -32,8 +34,9 @@ or precision DEFAULT; backward: ``contract_dtype`` or a bf16 bank).
 CPU) contract in bf16, as ``_bwd`` does (``:1076-1094``); the setting in
 force when the forward runs decides its backward.
 
-``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches and nothing
-else; ``VARIANT_LAUNCHES`` counts them by :func:`variant_name`.
+``FWD_LAUNCHES``, ``BWD_LAUNCHES`` and ``OVERLAP_LAUNCHES`` count kernel
+launches and nothing else; ``VARIANT_LAUNCHES`` counts the first two by
+:func:`variant_name`.
 ``render_from_phase_plain`` (defined in ``ops/oscillator.py``),
 ``render_from_phase_bwd_plain`` and the ``*_variant_plain`` functions are
 the plain PyTorch versions the tests and ``chip_smoke.py`` hold the
@@ -55,6 +58,7 @@ from ddsp_tpu_torch.ops.oscillator import TWO_PI, render_from_phase_plain
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+OVERLAP_LAUNCHES = 0
 VARIANT_LAUNCHES: collections.Counter = collections.Counter()
 
 _FILL_CODES = {"exact": 0, "rot": 1, "cheb8": 2}  # csrc/osc_fill.cuh
@@ -68,6 +72,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "osc_frames_fwd": [_P] * 5 + [_I] * 9 + [_P],
     "osc_frames_bwd": [_P] * 8 + [_I] * 9 + [_P],
+    "osc_frames_overlap_add": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 
@@ -280,13 +285,13 @@ def osc_frames_fwd(phase, amps_pad, loud_pad, h_start: int = 0, fill: str = "exa
     return out
 
 
-def osc_frames_bwd(
+def osc_frames_bwd_windows(
     g, phase, amps_pad, loud_pad, h_start: int = 0, fill: str = "exact",
     bf16: bool = False, resync_tiles: int = 8, chunk_tiles: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernel for the audio gradient ``g`` (B, T*hop):
-    (dphase (B, T, hop), d amps_pad (B, T+2, H), d loud_pad (B, T+2)).
-    CUDA tensors only."""
+    """Launch the backward kernel alone for the audio gradient ``g``
+    (B, T*hop): (dphase (B, T, hop), da_win (B, T, 3, H), dl_win (B, T, 3)),
+    the gradients of each frame's three windows.  CUDA tensors only."""
     global BWD_LAUNCHES
     _check(phase, amps_pad, loud_pad, h_start, g)
     code, resync, chunk = _launch_options(fill, resync_tiles, chunk_tiles)
@@ -310,7 +315,48 @@ def osc_frames_bwd(
         raise RuntimeError(f"osc_frames_bwd launch failed: CUDA error {rc}")
     BWD_LAUNCHES += 1
     VARIANT_LAUNCHES[variant_name("osc_frames_bwd", fill, bf16, resync_tiles, chunk_tiles)] += 1
-    return (dphase, *overlap_add_windows(da_win, dl_win, t))
+    return dphase, da_win, dl_win
+
+
+def osc_overlap_add(da_win, dl_win, t: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the overlap-add kernel: :func:`overlap_add_windows` (its plain
+    version) in one launch, with the same float additions in the same
+    order, so bit-equal to it.  CUDA tensors only."""
+    global OVERLAP_LAUNCHES
+    b, t_win, k, h = da_win.shape
+    if (t_win, k) != (t, 3) or tuple(dl_win.shape) != (b, t, 3):
+        raise ValueError(f"window gradients {tuple(da_win.shape)}, {tuple(dl_win.shape)} "
+                         f"are not (B, {t}, 3, H), (B, {t}, 3)")
+    if any(x.device.type != "cuda" for x in (da_win, dl_win)):
+        raise ValueError("osc_frames kernels take CUDA tensors only")
+    if da_win.device != dl_win.device:
+        raise ValueError("osc_overlap_add inputs lie on different devices")
+    if any(x.dtype != torch.float32 or not x.is_contiguous() for x in (da_win, dl_win)):
+        raise ValueError("osc_overlap_add takes contiguous float32 tensors only")
+    device = da_win.device
+    d_amps = torch.empty((b, t + 2, h), dtype=torch.float32, device=device)
+    d_loud = torch.empty((b, t + 2), dtype=torch.float32, device=device)
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.osc_frames_overlap_add(da_win.data_ptr(), dl_win.data_ptr(),
+                                        d_amps.data_ptr(), d_loud.data_ptr(), b, t, h, stream)
+    if rc != 0:
+        raise RuntimeError(f"osc_frames_overlap_add launch failed: CUDA error {rc}")
+    OVERLAP_LAUNCHES += 1
+    return d_amps, d_loud
+
+
+def osc_frames_bwd(
+    g, phase, amps_pad, loud_pad, h_start: int = 0, fill: str = "exact",
+    bf16: bool = False, resync_tiles: int = 8, chunk_tiles: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel and the overlap-add kernel for the audio
+    gradient ``g`` (B, T*hop): (dphase (B, T, hop), d amps_pad (B, T+2, H),
+    d loud_pad (B, T+2)).  CUDA tensors only."""
+    dphase, da_win, dl_win = osc_frames_bwd_windows(
+        g, phase, amps_pad, loud_pad, h_start, fill, bf16, resync_tiles, chunk_tiles)
+    return (dphase, *osc_overlap_add(da_win, dl_win, phase.shape[1]))
 
 
 class OscFrames(torch.autograd.Function):

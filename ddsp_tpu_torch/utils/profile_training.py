@@ -85,6 +85,7 @@ def _counts():
     return {
         "osc_frames_fwd": osc_frames.FWD_LAUNCHES,
         "osc_frames_bwd": osc_frames.BWD_LAUNCHES,
+        "osc_frames_overlap_add": osc_frames.OVERLAP_LAUNCHES,
         "stft_power_fwd": stft.FWD_LAUNCHES,
         "stft_power_bwd": stft.BWD_LAUNCHES,
         "stft_power_bwd_recompute": stft.BWD_RECOMPUTE_LAUNCHES,

@@ -268,3 +268,40 @@ def test_bf16_contraction_on_card_matches_plain(cuda_device, port_contract_reset
     want = osc_frames.render_from_phase_bwd_variant_plain(g, phase, amps, loud, 2, bf16=True)
     for a, c in zip(want, got):
         assert _snr(a.cpu().numpy(), c.cpu().numpy()) > 60.0
+
+
+# Every fill x bf16 instantiation of K2 at the shapes its slot ownership
+# makes awkward: H of 1 and 7, h_start + H = 2048, hops of 100 and 200 (no
+# multiple of a block's samples), a lone frame, the training width.
+FRAME_SHAPES = [(1, 1, 100, 1, 0), (2, 3, 100, 7, 5), (1, 2, 64, 24, 2024),
+                (1, 2, 64, 301, 1747), (3, 4, 200, 41, 8), (2, 4, 512, 180, 0)]
+FILL_OPTIONS = [("exact", {}), ("rot", {}), ("rot", {"chunk_tiles": 2}), ("rot4", {}),
+                ("cheb8", {}), ("cheb8", {"resync_tiles": 3, "chunk_tiles": 5})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("fill,opts", FILL_OPTIONS)
+@pytest.mark.parametrize("b,t,hop,h,h_start", FRAME_SHAPES)
+def test_backward_instantiations_at_awkward_shapes_on_card(
+        cuda_device, b, t, hop, h, h_start, fill, opts, bf16):
+    """osc_frames_bwd against its plain version of the same options: each
+    gradient > 80 dB (float32) or > 60 dB (bf16), two runs bit-equal."""
+    rng = np.random.default_rng(b + t + h)
+    arrays = (rng.uniform(0, 1, (b, t, hop)), rng.uniform(0, 1, (b, t + 2, h)) / h,
+              rng.uniform(0, 1, (b, t + 2)), rng.standard_normal((b, t * hop)))
+    phase, amps, loud, g = (torch.tensor(x, dtype=torch.float32, device=cuda_device)
+                            for x in arrays)
+    name = osc_frames.variant_name("osc_frames_bwd", fill, bf16, **opts)
+    before = osc_frames.VARIANT_LAUNCHES[name]
+    got = osc_frames.osc_frames_bwd(g, phase, amps, loud, h_start, fill=fill, bf16=bf16, **opts)
+    again = osc_frames.osc_frames_bwd(g, phase, amps, loud, h_start, fill=fill, bf16=bf16,
+                                      **opts)
+    torch.cuda.synchronize()
+    assert osc_frames.VARIANT_LAUNCHES[name] == before + 2
+    want = osc_frames.render_from_phase_bwd_variant_plain(
+        g, phase, amps, loud, h_start, fill=fill, bf16=bf16, **opts)
+    for label, a, c, c2 in zip(NAMES, want, got, again):
+        assert c.shape == a.shape and bool(torch.isfinite(c).all()), label
+        assert torch.equal(c, c2), label
+        assert _snr(a.cpu().numpy(), c.cpu().numpy()) > (60.0 if bf16 else 80.0), label

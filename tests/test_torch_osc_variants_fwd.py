@@ -233,3 +233,34 @@ def test_forward_kernels_match_plain_versions_on_card(cuda_device, hop):
         assert r["launches"] == r["expected_launches"], r
     rows = osc_sweep.sweep_resync(cuda_device, (B, T, hop, H), iters=1)
     assert all(r["db_plain"] > 90.0 for r in rows)
+
+
+# Every fill x bf16 instantiation of K1 at the shapes its block layout makes
+# awkward: H of 1 and 7, h_start + H = 2048 (H = 24 and 301), hops of 100
+# and 200 (no multiple of a block's samples), a lone frame, the training
+# width.
+FRAME_SHAPES = [(1, 1, 100, 1, 0), (2, 3, 100, 7, 5), (1, 2, 64, 24, 2024),
+                (1, 2, 64, 301, 1747), (3, 4, 200, 41, 8), (2, 4, 512, 180, 0)]
+FILL_OPTIONS = [("exact", {}), ("rot", {}), ("rot", {"chunk_tiles": 2}), ("rot4", {}),
+                ("cheb8", {}), ("cheb8", {"resync_tiles": 3, "chunk_tiles": 5})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("fill,opts", FILL_OPTIONS)
+@pytest.mark.parametrize("b,t,hop,h,h_start", FRAME_SHAPES)
+def test_forward_instantiations_at_awkward_shapes_on_card(
+        cuda_device, b, t, hop, h, h_start, fill, opts, bf16):
+    """osc_frames_fwd against its plain version of the same options:
+    float32 > 90 dB, bf16 > 60 dB, one launch counted under its name."""
+    phase, amps, loud = (torch.from_numpy(x).to(cuda_device)
+                         for x in _operands(hop, seed=b + t + h, b=b, t=t, h=h))
+    name = osc_frames.variant_name("osc_frames_fwd", fill, bf16, **opts)
+    before = osc_frames.VARIANT_LAUNCHES[name]
+    got = osc_frames.osc_frames_fwd(phase, amps, loud, h_start, fill=fill, bf16=bf16, **opts)
+    torch.cuda.synchronize()
+    assert osc_frames.VARIANT_LAUNCHES[name] == before + 1
+    want = osc_frames.render_from_phase_variant_plain(
+        phase, amps, loud, h_start, fill=fill, bf16=bf16, **opts)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert _snr(want.cpu().numpy(), got.cpu().numpy()) > (60.0 if bf16 else 90.0)

@@ -214,6 +214,37 @@ def test_cpu_takes_plain_version_and_launchers_refuse_cpu():
         osc_frames.osc_frames_fwd(phase, amps, loud, h_start=2048)
 
 
+def test_backward_launchers_refuse_cpu_and_bad_window_shapes():
+    phase, amps, loud, g = (torch.from_numpy(x) for x in _operands(seed=5, h_start=0))
+    da_win, dl_win = torch.zeros((B, T, 3, H)), torch.zeros((B, T, 3))
+    before = (osc_frames.BWD_LAUNCHES, osc_frames.OVERLAP_LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        osc_frames.osc_frames_bwd_windows(g, phase, amps, loud)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        osc_frames.osc_overlap_add(da_win, dl_win, T)
+    with pytest.raises(ValueError, match="window gradients"):
+        osc_frames.osc_overlap_add(da_win, dl_win, T + 1)
+    with pytest.raises(ValueError, match="window gradients"):
+        osc_frames.osc_overlap_add(da_win[:, :, :2], dl_win, T)
+    assert (osc_frames.BWD_LAUNCHES, osc_frames.OVERLAP_LAUNCHES) == before
+
+
+def test_overlap_add_plain_version_sums_windows_in_k_order():
+    """The plain overlap-add (the CPU path, and what the card's kernel must
+    equal bit for bit): row r = ((0 + win0[r]) + win1[r-1]) + win2[r-2]."""
+    rng = np.random.default_rng(6)
+    da_win = torch.from_numpy(rng.standard_normal((B, T, 3, H)).astype(np.float32))
+    dl_win = torch.from_numpy(rng.standard_normal((B, T, 3)).astype(np.float32))
+    d_amps, d_loud = osc_frames.overlap_add_windows(da_win, dl_win, T)
+    for got, win in ((d_amps, da_win), (d_loud, dl_win)):
+        for r in range(T + 2):
+            want = torch.zeros_like(win[:, 0, 0])
+            for k in range(3):
+                if 0 <= r - k < T:
+                    want = want + win[:, r - k, k]
+            assert torch.equal(got[:, r], want)
+
+
 @pytest.fixture
 def cuda_device():
     """The first GPU; the test skips where there is none."""
@@ -244,3 +275,76 @@ def test_kernel_pair_matches_plain_version_on_card(cuda_device, b, t, hop, h, h_
     again = osc_frames.osc_frames_bwd(g, phase, amps, loud, h_start)
     for a, c in zip(grads, again):
         assert torch.equal(a, c)
+
+
+# Shapes the kernels' ownership makes awkward: H of 1 and 7 (one ragged
+# tile), the last harmonic at 2048 (h_start + H = 2048; at H = 301 the
+# backward keeps one partial row a warp), hops that are no multiple of a
+# block's samples (100, 200), a lone frame (B = T = 1), and the training
+# width.
+AWKWARD_SHAPES = [
+    (1, 1, 100, 1, 0),
+    (2, 3, 100, 7, 5),
+    (1, 2, 64, 24, 2024),
+    (1, 2, 64, 301, 1747),
+    (3, 4, 200, 41, 8),
+    (2, 5, 512, 180, 0),
+]
+
+
+def _raw_operands(seed, b, t, hop, h):
+    """Operands without the Nyquist mask, which would zero every harmonic
+    near 2048: amplitudes uniform / H (the sweep's operands)."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.0, 1.0, (b, t, hop)).astype(np.float32),
+            (rng.uniform(0.0, 1.0, (b, t + 2, h)) / h).astype(np.float32),
+            rng.uniform(0.0, 1.0, (b, t + 2)).astype(np.float32),
+            rng.standard_normal((b, t * hop)).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["exact", "rot"])
+@pytest.mark.parametrize("b,t,hop,h,h_start", AWKWARD_SHAPES)
+def test_kernel_pair_at_awkward_shapes_on_card(cuda_device, b, t, hop, h, h_start, fill):
+    """K1 and K2 (with its overlap-add) against their plain versions of the
+    same fill: forward > 90 dB, each gradient > 80 dB, two backward runs
+    bit-equal, one launch of each kernel per call."""
+    phase, amps, loud, g = (torch.from_numpy(x).to(cuda_device)
+                            for x in _raw_operands(b * t + h, b, t, hop, h))
+    before = (osc_frames.FWD_LAUNCHES, osc_frames.BWD_LAUNCHES, osc_frames.OVERLAP_LAUNCHES)
+    got = osc_frames.osc_frames_fwd(phase, amps, loud, h_start, fill=fill)
+    grads = osc_frames.osc_frames_bwd(g, phase, amps, loud, h_start, fill=fill)
+    again = osc_frames.osc_frames_bwd(g, phase, amps, loud, h_start, fill=fill)
+    torch.cuda.synchronize()
+    assert (osc_frames.FWD_LAUNCHES, osc_frames.BWD_LAUNCHES,
+            osc_frames.OVERLAP_LAUNCHES) == (before[0] + 1, before[1] + 2, before[2] + 2)
+    want = osc_frames.render_from_phase_variant_plain(phase, amps, loud, h_start, fill)
+    assert got.shape == want.shape
+    assert _snr(want.cpu().numpy(), got.cpu().numpy()) > 90.0
+    want_grads = osc_frames.render_from_phase_bwd_variant_plain(
+        g, phase, amps, loud, h_start, fill)
+    for a, c, c2 in zip(want_grads, grads, again):
+        assert c.shape == a.shape
+        assert _snr(a.cpu().numpy(), c.cpu().numpy()) > 80.0
+        assert torch.equal(c, c2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h", [(1, 1, 1), (2, 3, 7), (3, 5, 41), (16, 172, 180)])
+def test_overlap_add_kernel_is_bit_equal_to_plain_version(cuda_device, b, t, h):
+    """The overlap-add kernel against overlap_add_windows on the same card
+    tensors, bit for bit (signed zeros included)."""
+    rng = np.random.default_rng(b + t + h)
+    da = rng.standard_normal((b, t, 3, h)).astype(np.float32)
+    dl = rng.standard_normal((b, t, 3)).astype(np.float32)
+    da[rng.uniform(size=da.shape) < 0.1] = -0.0
+    dl[..., 0] = -0.0
+    da_win, dl_win = torch.from_numpy(da).to(cuda_device), torch.from_numpy(dl).to(cuda_device)
+    before = osc_frames.OVERLAP_LAUNCHES
+    got = osc_frames.osc_overlap_add(da_win, dl_win, t)
+    want = osc_frames.overlap_add_windows(da_win, dl_win, t)
+    torch.cuda.synchronize()
+    assert osc_frames.OVERLAP_LAUNCHES == before + 1
+    for a, c in zip(want, got):
+        assert c.shape == a.shape
+        assert torch.equal(a.view(torch.int32), c.view(torch.int32))
