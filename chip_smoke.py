@@ -10,11 +10,12 @@ Phases, each of which must pass (any failure exits non-zero):
    sm_90a, one nvcc per source, all started together;
 2. kernel vs plain: ``osc_hop_slots`` on the card's default fill (the
    rotation fill of ``_kernel_banked``) is held against its plain PyTorch
-   version on that fill at the serving shape (N=256, hop 512, H=180) and
-   at a ragged shape (N=13, hop 128, H=40), SNR > 90 dB, and so is its
-   exact fill ('xla'); all are timed with CUDA events beside the bound,
-   the kernel also inside a CUDA graph (its device time: a call from
-   Python takes longer on the host than the kernel on the card);
+   version on that fill at the serving shapes (N=256, 1024 and 2048 slots,
+   hop 512, H=180) and at a ragged shape (N=13, hop 128, H=40), SNR > 90
+   dB, and so is its exact fill ('xla'); all are timed with CUDA events
+   beside the bound, the kernel also inside a CUDA graph (its device time:
+   a call from Python takes longer on the host than the kernel on the
+   card);
 3. the serving step at full default width: ``MultiStreamServer`` with 256
    slots and seeded random weights for 100 hops of tone plus noise.  The
    kernel's launch count must grow by one per hop, all on the rotation fill
@@ -22,8 +23,10 @@ Phases, each of which must pass (any failure exits non-zero):
    equal lone single-stream runs at batch 1 within 2e-5 absolute (the
    lone stream itself moves by up to 1.14e-5 between batch 1 and 256,
    ``utils/slot_parity.py``), with the same CREPE pitch bins, and slot 0
-   its lone stream run on 256 rows within 1e-5; the median ms per hop is printed for 256, 1024 and 2048 slots against the
-   11.6 ms hop deadline;
+   its lone stream run on 256 rows within 1e-5; the median ms per hop is
+   printed for 256, 1024 and 2048 slots against the 11.6 ms hop deadline,
+   and at 1024 and 2048 the kernel must launch once a hop on the rotation
+   fill too;
 4. the socket server: ``StreamServer`` at full width on a unix socket, four
    concurrent clients streaming 1 s each, each equal to its slot driven
    through ``MultiStreamServer``;
@@ -153,6 +156,7 @@ N_SLOTS = 256
 N_HOPS = 100
 CHECK_SLOTS = (0, 1, 255)
 DEADLINE_SLOTS = (256, 1024, 2048)
+DEADLINE_HOPS = 25  # hops timed at each N above N_SLOTS
 KERNEL_SNR_FLOOR_DB = 90.0
 # A slot vs its lone stream at the server's batch size, and a socket
 # client vs its slot: the JAX contract's 1e-5 (tests/test_multistream.py).
@@ -346,20 +350,22 @@ def kernel_bound_ms(n: int, hop: int, h: int):
 
 def phase_kernel(device):
     """K5 on the card's default fill (the rotation fill of ``_kernel_banked``)
-    against its plain version on that fill; the exact fill (``osc_impl``
-    'xla') held and timed beside it."""
+    against its plain version on that fill at 256, 1024 and 2048 serving
+    slots and a ragged shape; the exact fill (``osc_impl`` 'xla') held and
+    timed beside it."""
     import torch
 
     from ddsp_tpu_torch.ops.cuda import oscillator as osc_cuda
 
-    result = {}
-    for n, hop, h in ((N_SLOTS, 512, 180), (13, 128, 40)):
+    result = {"slots": {}}
+    for n, hop, h in (*((n, 512, 180) for n in DEADLINE_SLOTS), (13, 128, 40)):
         inputs = kernel_inputs(n, hop, h, device, seed=n)
         for fill in ("rot", "exact"):
             got = osc_cuda.osc_hop_slots(*inputs, fill=fill)
             torch.cuda.synchronize()
             want = osc_cuda.render_hop_slots_plain(*inputs, fill=fill)
             got_np, want_np = got.cpu().numpy(), want.cpu().numpy()
+            del got, want
             require(np.isfinite(got_np).all(), f"kernel output not finite at {(n, hop, h)}")
             snr = snr_db(want_np, got_np)
             err = float(np.abs(got_np - want_np).max())
@@ -369,18 +375,20 @@ def phase_kernel(device):
             kernel_ms = cuda_ms(lambda: osc_cuda.osc_hop_slots(*inputs, fill=fill), iters=200)
             in_graph_ms = graph_ms(lambda: osc_cuda.osc_hop_slots(*inputs, fill=fill), iters=200)
             plain_ms = cuda_ms(
-                lambda: osc_cuda.render_hop_slots_plain(*inputs, fill=fill), iters=20)
+                lambda: osc_cuda.render_hop_slots_plain(*inputs, fill=fill), iters=10)
             bound_ms, bound_by = kernel_bound_ms(n, hop, h)
             log(f"[kernel] N={n} hop={hop} H={h} fill={fill}: SNR {snr:.2f} dB, max |err| "
                 f"{err:.3e}, kernel {kernel_ms:.5f} ms a call ({in_graph_ms:.5f} ms in a CUDA "
                 f"graph), plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+            row = dict(snr_db=snr, max_abs_err=err, ms=kernel_ms, graph_ms=in_graph_ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            if n in DEADLINE_SLOTS:
+                result["slots"].setdefault(str(n), {})[fill] = row
             if n == N_SLOTS and fill == "rot":
-                result = dict(snr_db=snr, max_abs_err=err, ms=kernel_ms, graph_ms=in_graph_ms,
-                              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                              fill="rot")
+                result.update(row, fill="rot")
             elif n == N_SLOTS:
-                result["exact_fill"] = dict(snr_db=snr, ms=kernel_ms, graph_ms=in_graph_ms,
-                                            plain_ms=plain_ms)
+                result["exact_fill"] = {k: row[k] for k in ("snr_db", "ms", "graph_ms",
+                                                            "plain_ms")}
     log("[kernel] library_ms: null -- no single PyTorch call computes a harmonic "
         "sine-bank sum; the nearest is the plain einsum version timed above")
     return result
@@ -461,9 +469,17 @@ def phase_serving(device):
     log(f"[serving] slot 0 vs lone stream on {N_SLOTS} rows (row 0): max |err| {err:.3e}")
     require(err <= SLOT_ATOL, f"slot 0 vs lone stream at batch {N_SLOTS}: {err:.3e} > {SLOT_ATOL}")
 
+    launches_by_slots = {N_SLOTS: launches}
     for n in DEADLINE_SLOTS[1:]:
         big = MultiStreamServer(params, crepe, conf, n, noise_seed=SEED, device=device)
-        _, t = hop_times(big, tone_blocks(n, 25, conf.hop_length, conf.sample_rate, SEED + n))
+        blocks_n = tone_blocks(n, DEADLINE_HOPS, conf.hop_length, conf.sample_rate, SEED + n)
+        osc_cuda.LAUNCHES = 0  # this N's hops, read just after
+        osc_cuda.VARIANT_LAUNCHES.clear()
+        _, t = hop_times(big, blocks_n)
+        by_fill_n = dict(osc_cuda.VARIANT_LAUNCHES)
+        require(by_fill_n == {rot: DEADLINE_HOPS} and osc_cuda.LAUNCHES == DEADLINE_HOPS,
+                f"serving {n} slots launched {by_fill_n}, not {DEADLINE_HOPS} x {rot}")
+        launches_by_slots[n] = osc_cuda.LAUNCHES
         median[n] = statistics.median(t[5:])
         del big
     fits = [n for n in DEADLINE_SLOTS if median[n] <= deadline_ms]
@@ -472,7 +488,8 @@ def phase_serving(device):
             f"({'within' if n in fits else 'over'} the {deadline_ms:.1f} ms deadline)")
     log(f"[serving] real-time slots per card (largest N measured within the deadline): "
         f"{max(fits) if fits else 0}")
-    return {"launches": launches, "launches_by_variant": by_fill}, params, crepe, conf
+    return ({"launches": launches, "launches_by_variant": by_fill,
+             "launches_by_slots": launches_by_slots}, params, crepe, conf)
 
 
 # --------------------------------------------------------------- phase 4
@@ -1813,7 +1830,8 @@ def main() -> int:
         name="osc_hop_slots", route="cuda", source="ddsp_tpu_torch/csrc/osc_hop_slots.cu",
         replaces="ddsp_tpu/ops/pallas/oscillator.py:446", tpu_function="_kernel_banked",
         launches=serving["launches"], launches_by_variant=serving["launches_by_variant"],
-        library_ms=None, library=no_library, **kernel)]
+        launches_by_slots=serving["launches_by_slots"], library_ms=None, library=no_library,
+        **kernel)]
     for name, line, tpu in (("osc_frames_fwd", 152, "_kernel_banked2"),
                             ("osc_frames_bwd", 777, "_kernel_banked2_bwd")):
         kernels.append(dict(

@@ -15,17 +15,31 @@
 //
 // Accumulator layout (:340-346): when hop % 256 == 0, samples j < hop/2
 // take weight only from frames t-1 and t (w[j, 2] = 0) and samples
-// j >= hop/2 only from t and t+1 (w[j, 0] = 0), so each thread keeps two
-// window sums instead of three.  With 128-sample blocks a block lies in one
-// half, so the choice is uniform per block.  No h_start: the TPU kernel has
-// none (the wrapper raises NotImplementedError, as :638-641 does).
+// j >= hop/2 only from t and t+1 (w[j, 0] = 0), so each sample keeps two
+// window sums instead of three.  No h_start: the TPU kernel has none (the
+// wrapper raises NotImplementedError, as :638-641 does).
 //
-// What bounds it on an H100: arithmetic, ~8 FLOP a (sample, harmonic)
-// point: the recurrence (one multiply, one subtract), two (three) window
-// multiply-adds, and two exact sines every `resync` harmonics, against K1's
-// exactly reduced sine per point.  One thread per sample keeps the three
-// recurrence values in registers; the frame's three amplitude rows sit in
-// shared memory and are read as warp-wide broadcasts.
+// What bounds it on an H100: issue slots.  A (sample, harmonic) point
+// costs the recurrence (one multiply, one subtract, rounded apart) and two
+// (three) window FMAs, and every `resync` harmonics two exact sines (~45
+// issue slots each).  The recurrence is one dependent chain a sample, so:
+//
+// * a thread interleaves kQ samples of a frame, strided by the block, and
+//   their kQ chains issue side by side;
+// * the harmonic loop runs in segments of `resync` harmonics: the exact
+//   seeds of h and h - 1 at a segment's start, then the recurrence with no
+//   test inside (no integer division a harmonic);
+// * the frame's amplitudes sit in shared memory one vector a harmonic,
+//   (A[t], A[t+1], A[t+2], 0) as a float4, or in the split layout the two
+//   rows of the block's half as a float2, so one broadcast load a harmonic
+//   serves the thread's kQ samples;
+// * with the split, a block lies in one half of the hop (a half is a
+//   multiple of 128 samples), so its rows and windows are uniform.
+//
+// Each sample keeps its operations in the order of the one-sample-a-thread
+// kernel this replaced (window sums over harmonics in order, the
+// recurrence's roundings, the same seeds), so the output keeps its bits at
+// every resync.
 //
 // Accuracy: the recurrence rounds each multiply and subtract on its own
 // (__fmul_rn / __fsub_rn), as the TPU kernel and the plain torch version
@@ -34,83 +48,128 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "osc_fwd.cuh"
 #include "osc_phase.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kQ = 4;  // samples a thread, strided by the block
 
 __device__ __forceinline__ float exact_sin(float hi, float lo, int h) {
   return sinf(osc::kTwoPi * osc::harmonic_frac(hi, lo, static_cast<float>(h)));
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The window amplitudes of one harmonic: float2 (the split's two rows) or
+// float4 (three rows and a zero).
+template <bool kSplit>
+using Rows = std::conditional_t<kSplit, float2, float4>;
+
+template <bool kSplit>
+__global__ void __launch_bounds__(osc::kFwdMaxThreads)
 osc_cheb_fwd_kernel(const float* __restrict__ phase,  // (B, T, hop)
                     const float* __restrict__ amps,   // (B, T+2, H)
                     const float* __restrict__ loud,   // (B, T+2)
                     const float* __restrict__ w,      // (hop, 3)
                     float* __restrict__ out,          // (B, T, hop)
                     int n_frames, int hop, int n_harm, int resync,
-                    int tiles_per_frame) {
-  extern __shared__ float rows[];  // [3][n_harm]: amps rows t, t+1, t+2
-  const int frame = blockIdx.x / tiles_per_frame;
-  const int tile = blockIdx.x - frame * tiles_per_frame;
+                    int tiles_per_span) {
+  extern __shared__ float4 smem4[];
+  Rows<kSplit>* rows = reinterpret_cast<Rows<kSplit>*>(smem4);  // [n_harm]
+  const int spans = kSplit ? 2 : 1;           // halves of the hop (split) or the hop
+  const int span = hop / spans;
+  const int frame = blockIdx.x / (spans * tiles_per_span);
+  const int rest = blockIdx.x - frame * spans * tiles_per_span;
+  const int part = rest / tiles_per_span;     // 0: the low half (or the whole hop)
+  const int tile = rest - part * tiles_per_span;
+  const bool low = part == 0;
   const size_t b = blockIdx.y;
   const float* a0 = amps + (b * (n_frames + 2) + frame) * n_harm;
-  for (int i = threadIdx.x; i < 3 * n_harm; i += blockDim.x) rows[i] = a0[i];
+  for (int h = threadIdx.x; h < n_harm; h += blockDim.x) {
+    if constexpr (kSplit) {
+      // (t-1, t) below hop/2, (t, t+1) from hop/2 on
+      const float* ra = low ? a0 : a0 + n_harm;
+      rows[h] = make_float2(ra[h], ra[n_harm + h]);
+    } else {
+      rows[h] = make_float4(a0[h], a0[n_harm + h], a0[2 * n_harm + h], 0.0f);
+    }
+  }
   __syncthreads();
 
-  const int j = tile * kThreads + threadIdx.x;
-  if (j >= hop) return;
-  const size_t idx = (b * n_frames + frame) * hop + j;
-  const float x = phase[idx];
-  float hi, lo;
-  osc::split_phase(x, &hi, &lo);
-  float s_cur, c1;
-  sincosf(osc::kTwoPi * x, &s_cur, &c1);
-  const float two_c = 2.0f * c1;
-  float s_prev = 0.0f;
-
-  const float w0 = w[3 * j], w1 = w[3 * j + 1], w2 = w[3 * j + 2];
-  const bool split = hop % 256 == 0;
-  float harm;
-  if (split) {
-    // two windows: (t-1, t) below hop/2, (t, t+1) from hop/2 on
-    const bool low = j < hop / 2;
-    const float* ra = low ? rows : rows + n_harm;
-    const float* rb = low ? rows + n_harm : rows + 2 * n_harm;
-    float acc_a = 0.0f, acc_b = 0.0f;
-    for (int h = 1; h <= n_harm; ++h) {
-      if (h > 1 && (h - 1) % resync == 0) {
-        s_cur = exact_sin(hi, lo, h);
-        s_prev = exact_sin(hi, lo, h - 1);
-      }
-      acc_a = fmaf(ra[h - 1], s_cur, acc_a);
-      acc_b = fmaf(rb[h - 1], s_cur, acc_b);
-      const float s_next = __fsub_rn(__fmul_rn(two_c, s_cur), s_prev);
-      s_prev = s_cur;
-      s_cur = s_next;
-    }
-    harm = low ? acc_a * w0 + acc_b * w1 : acc_a * w1 + acc_b * w2;
-  } else {
-    float acc_l = 0.0f, acc_m = 0.0f, acc_r = 0.0f;
-    for (int h = 1; h <= n_harm; ++h) {
-      if (h > 1 && (h - 1) % resync == 0) {
-        s_cur = exact_sin(hi, lo, h);
-        s_prev = exact_sin(hi, lo, h - 1);
-      }
-      acc_l = fmaf(rows[h - 1], s_cur, acc_l);
-      acc_m = fmaf(rows[n_harm + h - 1], s_cur, acc_m);
-      acc_r = fmaf(rows[2 * n_harm + h - 1], s_cur, acc_r);
-      const float s_next = __fsub_rn(__fmul_rn(two_c, s_cur), s_prev);
-      s_prev = s_cur;
-      s_cur = s_next;
-    }
-    harm = acc_l * w0 + acc_m * w1 + acc_r * w2;
+  const size_t base = (b * n_frames + frame) * hop + part * span;
+  const int j0 = tile * kQ * blockDim.x + threadIdx.x;  // within the span
+  float hi[kQ], lo[kQ], two_c[kQ], s_cur[kQ], s_prev[kQ];
+  float acc_a[kQ], acc_b[kQ], acc_c[kQ];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int j = j0 + q * blockDim.x;
+    const float x = j < span ? phase[base + j] : 0.0f;
+    osc::split_phase(x, &hi[q], &lo[q]);
+    float c1;
+    sincosf(osc::kTwoPi * x, &s_cur[q], &c1);
+    two_c[q] = 2.0f * c1;
+    s_prev[q] = 0.0f;
+    acc_a[q] = acc_b[q] = acc_c[q] = 0.0f;
   }
+
+  // Segments [h0, h1) of `resync` harmonics (the host clamps resync to
+  // n_harm), each after the first seeded exactly at h0.
+  for (int h0 = 1;;) {
+    const int h1 = min(h0 + resync, n_harm + 1);
+#pragma unroll 4
+    for (int h = h0; h < h1; ++h) {
+      const Rows<kSplit> v = rows[h - 1];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        acc_a[q] = fmaf(v.x, s_cur[q], acc_a[q]);
+        acc_b[q] = fmaf(v.y, s_cur[q], acc_b[q]);
+        if constexpr (!kSplit) acc_c[q] = fmaf(v.z, s_cur[q], acc_c[q]);
+        const float s_next = __fsub_rn(__fmul_rn(two_c[q], s_cur[q]), s_prev[q]);
+        s_prev[q] = s_cur[q];
+        s_cur[q] = s_next;
+      }
+    }
+    if (h1 > n_harm) break;
+    h0 = h1;
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      s_cur[q] = exact_sin(hi[q], lo[q], h0);
+      s_prev[q] = exact_sin(hi[q], lo[q], h0 - 1);
+    }
+  }
+
   const float* ld = loud + b * (n_frames + 2) + frame;
-  const float loud_up = w0 * ld[0] + w1 * ld[1] + w2 * ld[2];
-  out[idx] = harm * loud_up;
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int jj = j0 + q * blockDim.x;
+    if (jj < span) {
+      const int j = part * span + jj;
+      const float w0 = w[3 * j], w1 = w[3 * j + 1], w2 = w[3 * j + 2];
+      float harm;
+      if constexpr (kSplit) {
+        harm = low ? acc_a[q] * w0 + acc_b[q] * w1 : acc_a[q] * w1 + acc_b[q] * w2;
+      } else {
+        harm = acc_a[q] * w0 + acc_b[q] * w1 + acc_c[q] * w2;
+      }
+      const float loud_up = w0 * ld[0] + w1 * ld[1] + w2 * ld[2];
+      out[base + jj] = harm * loud_up;
+    }
+  }
+}
+
+template <bool kSplit>
+cudaError_t launch(const float* phase, const float* amps, const float* loud, const float* w,
+                   float* out, int b, int t, int hop, int n_harm, int resync,
+                   cudaStream_t stream) {
+  // blocks covering a span (a half of the hop, or the hop) in kQ samples a thread
+  const osc::FwdShape shape = osc::fwd_shape(kSplit ? hop / 2 : hop, kQ);
+  const dim3 grid(t * (kSplit ? 2 : 1) * shape.tiles, b);
+  const size_t smem = static_cast<size_t>(n_harm) * sizeof(Rows<kSplit>);
+  osc_cheb_fwd_kernel<kSplit><<<grid, shape.threads, smem, stream>>>(
+      phase, amps, loud, w, out, t, hop, n_harm, resync < n_harm ? resync : n_harm,
+      shape.tiles);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -123,11 +182,9 @@ extern "C" int osc_cheb_fwd(const float* phase, const float* amps,
                             int b, int t, int hop, int n_harm, int resync,
                             void* stream) {
   if (b == 0 || t == 0 || hop == 0) return 0;
-  const int tiles = (hop + kThreads - 1) / kThreads;
-  const dim3 grid(t * tiles, b);
-  const size_t smem = 3 * static_cast<size_t>(n_harm) * sizeof(float);
-  osc_cheb_fwd_kernel<<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      phase, amps, loud, w, out, t, hop, n_harm, resync, tiles);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      hop % 256 == 0 ? launch<true>(phase, amps, loud, w, out, b, t, hop, n_harm, resync, s)
+                     : launch<false>(phase, amps, loud, w, out, b, t, hop, n_harm, resync, s);
+  return static_cast<int>(err);
 }

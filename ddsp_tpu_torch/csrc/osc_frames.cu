@@ -43,16 +43,12 @@
 // covers the bf16 layout).  So both kernels keep every operand in
 // registers and spend shared memory on nothing per point:
 //
-// * forward: one thread renders 4 samples of a frame, strided by the
-//   block (stores coalesce), each with the 8 harmonic slots of a tile
-//   (osc::SlotFill: TileFill's arithmetic slot by slot, osc_fill.cuh), all
-//   seeded by one osc::SeedClock (one uniform branch a tile, no integer
-//   division).  The frame's three amplitude rows sit in shared memory,
-//   zero-padded to a multiple of 8 harmonics (no test per point), and each
-//   tile's 8 x 3 amplitudes are read once per thread as 16-byte broadcasts
-//   that serve all 4 samples (0.19 loads a point, from 3).  Blocks of up to
-//   128 threads, fewer for short hops.  The sums run over harmonics in
-//   order, as before: the forward's bits are unchanged.
+// * forward: osc::render_row (osc_fwd.cuh, the body K5 shares): one
+//   thread renders 2 samples of a frame, strided by the block, each with
+//   the 8 harmonic slots of a tile on one osc::SeedClock; the frame's three
+//   amplitude rows in shared memory, read as 16-byte broadcasts that serve
+//   both samples (0.38 loads a point).  Blocks of up to 128 threads, fewer
+//   for short hops.  The sums run over harmonics in order, as before.
 // * backward: one block of 4 warps per frame.  A lane owns one harmonic
 //   slot i of every 8-harmonic tile (harmonic h0 + 8g + i + 1) for 8
 //   samples: a warp is 8 slots x 4 groups of 8 samples, and each lane loads
@@ -115,13 +111,12 @@
 #include <cuda_runtime.h>
 
 #include "osc_fill.cuh"
+#include "osc_fwd.cuh"
 #include "osc_phase.cuh"
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kFwdThreads = 128;   // at most: fewer for hops under 512
-constexpr int kFwdSamples = 4;     // samples a forward thread, strided by the block
 constexpr int kBwdThreads = 128;
 constexpr int kBwdWarps = kBwdThreads / 32;
 constexpr int kBwdSamples = 8;     // samples a backward lane: one per lane of its group
@@ -130,18 +125,14 @@ constexpr int kGroups = 32 / kBwdSamples;  // sample groups of a warp
 // Per-group partial rows while they fit 3 blocks on an SM.
 constexpr size_t kGroupRowsSmemLimit = 72 * 1024;
 
-__host__ __device__ __forceinline__ int padded_harmonics(int n_harm) {
-  return (n_harm + 7) / 8 * 8;
-}
-
 size_t bwd_smem_bytes(int n_harm, int part_groups) {
-  const size_t hp = padded_harmonics(n_harm);
+  const size_t hp = osc::padded_harmonics(n_harm);
   return sizeof(float4) * (hp + 8 + static_cast<size_t>(kBwdWarps) * part_groups * hp) +
          sizeof(float) * kBwdWarps * 3;
 }
 
 template <int kFill, bool kBf16>
-__global__ void __launch_bounds__(kFwdThreads)
+__global__ void __launch_bounds__(osc::kFwdMaxThreads)
 osc_frames_fwd_kernel(const float* __restrict__ phase,  // (B, T, hop)
                       const float* __restrict__ amps,   // (B, T+2, H)
                       const float* __restrict__ loud,   // (B, T+2)
@@ -149,93 +140,17 @@ osc_frames_fwd_kernel(const float* __restrict__ phase,  // (B, T, hop)
                       float* __restrict__ out,          // (B, T, hop)
                       int n_frames, int hop, int n_harm, int h_start,
                       int tiles_per_frame, int resync_tiles, int chunk_tiles) {
-  extern __shared__ float4 rows4[];  // [3][hp / 4]: amps rows t .. t+2
-  float* rows = reinterpret_cast<float*>(rows4);
-  const int hp = padded_harmonics(n_harm);
   const int frame = blockIdx.x / tiles_per_frame;
   const int tile = blockIdx.x - frame * tiles_per_frame;
   const size_t b = blockIdx.y;
   // rows t .. t+2 of one batch row are contiguous: 3 * n_harm floats
-  const float* a0 = amps + (b * (n_frames + 2) + frame) * n_harm;
-  for (int i = threadIdx.x; i < 3 * hp; i += blockDim.x) {
-    const int k = i / hp;
-    const int h = i - k * hp;
-    const float v = h < n_harm ? a0[k * n_harm + h] : 0.0f;
-    rows[i] = kBf16 ? osc::round_bf16(v) : v;
-  }
-  __syncthreads();
-
-  const int j0 = tile * kFwdSamples * blockDim.x + threadIdx.x;
+  const size_t row = b * (n_frames + 2) + frame;
+  const float* a0 = amps + row * n_harm;
   const size_t base = (b * n_frames + frame) * hop;
-  // TileFill's arithmetic, slot by slot (osc::SlotFill), so that the
-  // samples share one seeding rule (osc::SeedClock: no division a tile).
-  osc::SlotFill<kFill, false> f[kFwdSamples][8];
-  float hi[kFwdSamples], lo[kFwdSamples], r0[kFwdSamples], r1[kFwdSamples];
-  float acc[kFwdSamples][3];
-#pragma unroll
-  for (int q = 0; q < kFwdSamples; ++q) {
-    const int j = j0 + q * blockDim.x;
-    osc::split_phase(j < hop ? phase[base + j] : 0.0f, &hi[q], &lo[q]);
-    r0[q] = 0.0f;  // kRot: the rotor (s8, c8); kCheb8: (-, 2 cos 8x)
-    r1[q] = 0.0f;
-    if (kFill != osc::kExact) {
-      float s8, c8;
-      sincosf(osc::kTwoPi * osc::harmonic_frac(hi[q], lo[q], 8.0f), &s8, &c8);
-      r0[q] = s8;
-      r1[q] = kFill == osc::kRot ? c8 : 2.0f * c8;
-    }
-    acc[q][0] = acc[q][1] = acc[q][2] = 0.0f;
-  }
-  osc::SeedClock clock(chunk_tiles, resync_tiles);
-  float h = static_cast<float>(h_start + 1);  // slot 0's harmonic
-  for (int g = 0; g < hp / 8; ++g, h += 8.0f) {
-    if (clock.seeded<kFill>()) {  // uniform
-#pragma unroll
-      for (int q = 0; q < kFwdSamples; ++q) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) f[q][i].seed(hi[q], lo[q], h + static_cast<float>(i));
-      }
-    } else {
-#pragma unroll
-      for (int q = 0; q < kFwdSamples; ++q) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) f[q][i].advance(r0[q], r1[q]);
-      }
-    }
-    clock.next();
-    float a[3][8];  // the tile's amplitudes, 16-byte broadcasts
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const float4 lo4 = rows4[(k * hp + 8 * g) / 4];
-      const float4 hi4 = rows4[(k * hp + 8 * g) / 4 + 1];
-      a[k][0] = lo4.x, a[k][1] = lo4.y, a[k][2] = lo4.z, a[k][3] = lo4.w;
-      a[k][4] = hi4.x, a[k][5] = hi4.y, a[k][6] = hi4.z, a[k][7] = hi4.w;
-    }
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int q = 0; q < kFwdSamples; ++q) {
-          const float s = kBf16 ? osc::round_bf16(f[q][i].s) : f[q][i].s;
-          acc[q][k] = fmaf(a[k][i], s, acc[q][k]);
-        }
-      }
-    }
-  }
-
-  const float* ld = loud + b * (n_frames + 2) + frame;
-  const float l0 = ld[0], l1 = ld[1], l2 = ld[2];
-#pragma unroll
-  for (int q = 0; q < kFwdSamples; ++q) {
-    const int j = j0 + q * blockDim.x;
-    if (j < hop) {
-      const float w0 = w[3 * j], w1 = w[3 * j + 1], w2 = w[3 * j + 2];
-      const float harm = w0 * acc[q][0] + w1 * acc[q][1] + w2 * acc[q][2];
-      const float loud_up = w0 * l0 + w1 * l1 + w2 * l2;
-      out[base + j] = loud_up * harm;
-    }
-  }
+  osc::render_row<kFill, kBf16, osc::kFwdSamples>(a0, a0 + n_harm, a0 + 2 * n_harm,
+                                                  loud + row, phase + base, w, out + base,
+                                                  tile, hop, n_harm, h_start, resync_tiles,
+                                                  chunk_tiles);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -304,7 +219,7 @@ osc_frames_bwd_kernel(const float* __restrict__ g,      // (B, T, hop)
                       int n_frames, int hop, int n_harm, int h_start,
                       int resync_tiles, int chunk_tiles, int part_groups) {
   extern __shared__ float4 smem4[];
-  const int hp = padded_harmonics(n_harm);
+  const int hp = osc::padded_harmonics(n_harm);
   const int n_parts = kBwdWarps * part_groups;
   float4* rows = smem4;                    // [hp + 8] (A[t], A[t+1], A[t+2], 0), zero-padded
   float4* part = rows + hp + 8;            // [n_parts][hp] window-amp partials (k = x, y, z)
@@ -528,15 +443,11 @@ int launch_fwd(const float* phase, const float* amps, const float* loud,
                const float* w, float* out, int b, int t, int hop, int n_harm,
                int h_start, int resync_tiles, int chunk_tiles,
                cudaStream_t stream) {
-  // a warp's multiple, at most 128 threads, covering the hop in 4 samples each
-  const int per_thread = (hop + kFwdSamples - 1) / kFwdSamples;
-  const int threads = per_thread >= kFwdThreads ? kFwdThreads : (per_thread + 31) / 32 * 32;
-  const int per_block = threads * kFwdSamples;
-  const int tiles = (hop + per_block - 1) / per_block;
-  const dim3 grid(t * tiles, b);
-  const size_t smem = 3 * static_cast<size_t>(padded_harmonics(n_harm)) * sizeof(float);
-  osc_frames_fwd_kernel<kFill, kBf16><<<grid, threads, smem, stream>>>(
-      phase, amps, loud, w, out, t, hop, n_harm, h_start, tiles, resync_tiles,
+  const osc::FwdShape shape = osc::fwd_shape(hop, osc::kFwdSamples);
+  const dim3 grid(t * shape.tiles, b);
+  osc_frames_fwd_kernel<kFill, kBf16><<<grid, shape.threads, osc::fwd_smem_bytes(n_harm),
+                                        stream>>>(
+      phase, amps, loud, w, out, t, hop, n_harm, h_start, shape.tiles, resync_tiles,
       chunk_tiles);
   return static_cast<int>(cudaGetLastError());
 }

@@ -48,21 +48,22 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` (once per source, headers and flags) and
-    return the path of the shared library."""
-    source = CSRC / f"{name}.cu"
+def build(name: str, csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile ``<csrc>/<name>.cu`` (once per source, headers and flags)
+    into ``build_dir`` and return the path of the shared library.  Another
+    checkout's ``csrc`` builds its own kernels (``utils/osc_kernel_ab.py``)."""
+    source = csrc / f"{name}.cu"
     digest = hashlib.sha256(source.read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+    for header in sorted(csrc.glob("*.cuh")):
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    lib = build_dir / f"lib{name}_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(source)],
+        [_nvcc(), *NVCC_FLAGS, "-I", str(csrc), "-o", str(tmp), str(source)],
         capture_output=True,
         text=True,
     )

@@ -147,6 +147,44 @@ def test_forward_variant_matches_interpreted_jax(interpret, hop, kw, grade):
         assert snr > 45.0 and _cos(want, got.numpy()) > 0.9999, snr
 
 
+@pytest.mark.parametrize("hop,h,h_start", [(128, 40, 0), (256, 7, 5), (128, 24, 2024)])
+def test_k5_rows_plain_matches_k1_plain_and_interpreted_jax(interpret, hop, h, h_start):
+    """K5's plain version on the rotation fill, fed the windows
+    amps_pad[:, t..t+2] of every frame as rows, against K1's plain forward
+    on that fill frame by frame (>= 140 dB: the same sines, summed in
+    another order), and against _pallas_forward(impl='banked')
+    (_kernel_banked) in the Pallas interpreter (> 90 dB)."""
+    import jax.numpy as jnp
+
+    from ddsp_tpu.ops.pallas.oscillator import _pallas_forward
+
+    t_frames = 6
+    arrays = _operands(hop, seed=h + h_start, t=t_frames, h=h)
+    phase, amps, loud = (torch.from_numpy(x) for x in arrays)
+    rows = osc_variants.render_rows(phase, amps, loud, h_start, plain=True)
+    k1 = osc_frames.render_from_phase_variant_plain(phase, amps, loud, h_start, fill="rot")
+    frames = lambda x: x.reshape(B * t_frames, hop).numpy()  # noqa: E731
+    assert min(_snr(a, b) for a, b in zip(frames(k1), frames(rows))) >= 140.0
+    want = _pallas_forward(*(jnp.asarray(x) for x in arrays), 4, impl="banked",
+                           h_start=h_start)
+    assert _snr(np.asarray(want), rows.numpy()) > 90.0
+
+
+@pytest.mark.parametrize("hop,resync", [(128, 1), (128, 41), (256, 7), (256, 41)])
+def test_k7_plain_matches_interpreted_jax_at_awkward_resyncs(interpret, hop, resync):
+    """K7's plain version against _kernel_cheb in the Pallas interpreter at
+    a re-seed every harmonic, at 7 and above H (no re-seed), in both
+    accumulator layouts (hop 256 splits): > 90 dB."""
+    import jax.numpy as jnp
+
+    from ddsp_tpu.ops.pallas.oscillator import _pallas_forward
+
+    arrays = _operands(hop, seed=resync, t=6)
+    want = _pallas_forward(*(jnp.asarray(x) for x in arrays), 4, impl="cheb", resync=resync)
+    got = osc_cheb.osc_cheb_fwd(*(torch.from_numpy(x) for x in arrays), resync)
+    assert _snr(np.asarray(want), got.numpy()) > 90.0
+
+
 @pytest.mark.parametrize("hop", [128, 256, 512])
 def test_k7_holds_its_floor_against_float64(hop):
     """K7 at the JAX default resync=32 against the float64 oracle; both
@@ -264,3 +302,27 @@ def test_forward_instantiations_at_awkward_shapes_on_card(
         phase, amps, loud, h_start, fill=fill, bf16=bf16, **opts)
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
     assert _snr(want.cpu().numpy(), got.cpu().numpy()) > (60.0 if bf16 else 90.0)
+
+
+# K7 where its layout is awkward: hop 512 (the split, two window sums) and
+# hop 200 (three), a re-seed every harmonic, at 7, at 32 and above H, H of
+# 1, 5 and 40.
+K7_CARD_CASES = [(hop, h, r) for hop in (512, 200) for h in (1, 5, 40)
+                 for r in (1, 7, 32, h + 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hop,h,resync", K7_CARD_CASES)
+def test_k7_at_awkward_shapes_on_card(cuda_device, hop, h, resync):
+    """osc_cheb_fwd against its plain version (> 90 dB), a rerun bit-equal,
+    two launches counted."""
+    phase, amps, loud = (torch.from_numpy(x).to(cuda_device)
+                         for x in _operands(hop, seed=hop + h + resync, b=3, t=5, h=h))
+    before = osc_cheb.LAUNCHES
+    got, again = (osc_cheb.osc_cheb_fwd(phase, amps, loud, resync) for _ in range(2))
+    torch.cuda.synchronize()
+    assert osc_cheb.LAUNCHES == before + 2
+    assert torch.equal(got, again)
+    want = osc_cheb.osc_cheb_plain(phase, amps, loud, resync)
+    assert bool(torch.isfinite(got).all())
+    assert _snr(want.cpu().numpy(), got.cpu().numpy()) > 90.0

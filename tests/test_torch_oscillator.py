@@ -157,3 +157,84 @@ def test_kernel_matches_plain_version_on_card(cuda_device, n, hop, h):
     want = cuda_osc.render_hop_slots_plain(*inputs).double()
     snr_db = 10 * torch.log10(want.pow(2).sum() / (want - got.double()).pow(2).sum())
     assert snr_db.item() > 90.0
+
+
+# K5 where its block layout is awkward: one slot, a ragged count, 257 and
+# 2048 slots; hops of 128, 200 (no multiple of a block's samples) and 512;
+# H of 1, 7, 180 and 301, with h_start up to 2048 - H.
+K5_CARD_SHAPES = [(1, 128, 1, 0), (3, 200, 7, 5), (3, 512, 301, 2048 - 301),
+                  (257, 200, 180, 0), (257, 128, 7, 2048 - 7), (2048, 512, 180, 0),
+                  (2048, 200, 1, 2047), (1, 512, 301, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", cuda_osc.FILLS)
+@pytest.mark.parametrize("n,hop,h,h_start", K5_CARD_SHAPES)
+def test_kernel_at_awkward_shapes_on_card(cuda_device, n, hop, h, h_start, fill):
+    """K5 against its plain version of the same fill (> 90 dB), a rerun
+    bit-equal, two launches counted under the fill's name."""
+    inputs = _kernel_inputs(n, hop, h, cuda_device, seed=n + hop + h)
+    name = cuda_osc.variant_name(fill)
+    before = cuda_osc.VARIANT_LAUNCHES[name]
+    got, again = (cuda_osc.osc_hop_slots(*inputs, h_start=h_start, fill=fill) for _ in range(2))
+    torch.cuda.synchronize()
+    assert cuda_osc.VARIANT_LAUNCHES[name] == before + 2
+    assert torch.equal(got, again)
+    want = cuda_osc.render_hop_slots_plain(*inputs, h_start=h_start, fill=fill).double()
+    snr_db = 10 * torch.log10(want.pow(2).sum() / (want - got.double()).pow(2).sum())
+    assert bool(torch.isfinite(got).all()) and snr_db.item() > 90.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", cuda_osc.FILLS)
+@pytest.mark.parametrize("b,t,hop,h,h_start", [(2, 5, 200, 7, 5), (3, 4, 512, 180, 0),
+                                               (1, 3, 128, 301, 2048 - 301)])
+def test_kernel_on_frame_rows_is_bit_equal_to_k1_on_card(cuda_device, b, t, hop, h, h_start,
+                                                          fill):
+    """K5 on the rows amps_pad[:, t..t+2] (``impl='banked'``) and K1 on
+    amps_pad run one body (csrc/osc_fwd.cuh) with the same sums: bit-equal."""
+    from ddsp_tpu_torch.ops.cuda import osc_frames, osc_variants
+
+    rng = np.random.default_rng(b + t + h)
+    phase, amps, loud = (torch.tensor(a, dtype=torch.float32, device=cuda_device) for a in (
+        rng.uniform(0, 1, (b, t, hop)), rng.uniform(0, 1, (b, t + 2, h)) / h,
+        rng.uniform(0, 1, (b, t + 2))))
+    if fill == "rot":
+        rows = osc_variants.render_rows(phase, amps, loud, h_start)
+    else:  # render_rows is the rotation fill's route: the same rows by hand
+        lw = torch.stack([loud[:, :-2], loud[:, 1:-1], loud[:, 2:]], -1).reshape(b * t, 3)
+        rows = cuda_osc.osc_hop_slots(
+            phase.reshape(b * t, hop), *(amps[:, k:k + t].reshape(b * t, h).contiguous()
+                                         for k in range(3)),
+            lw.contiguous(), torch.as_tensor(hop_weights(hop), device=cuda_device),
+            h_start, fill).reshape(b, t * hop)
+    k1 = osc_frames.osc_frames_fwd(phase, amps, loud, h_start, fill=fill)
+    assert torch.equal(rows, k1)
+
+
+def test_sass_loops_finds_each_backward_branch():
+    """The loop census of utils/osc_kernel_ab.py: a backward branch's body
+    runs from its target to the branch, both counted; forward branches
+    and other functions' loops stay apart."""
+    from ddsp_tpu_torch.utils.osc_kernel_ab import sass_loops
+
+    line = "        /*{:04x}*/                   {} ;   /* 0x0 */\n"
+    body = lambda ops: "".join(line.format(16 * i, op) for i, op in enumerate(ops))  # noqa: E731
+    listing = (
+        "\tFunction : kernel_a\n" + body(["MOV R1, R2", "FFMA R3, R1, R1, R3",
+                                         "@P0 BRA 0x40", "FMUL R4, R3, R3",
+                                         "@!P1 BRA 0x10", "EXIT"])
+        + "\tFunction : kernel_b\n" + body(["S2R R0, SR_TID.X", "BRA 0x0"]))
+    loops = sass_loops(listing)
+    assert loops == {
+        "kernel_a": [dict(start="0x10", end="0x40", instructions=4)],
+        "kernel_b": [dict(start="0x0", end="0x10", instructions=2)],
+    }
+
+
+def test_kernel_ab_needs_a_card(monkeypatch):
+    from ddsp_tpu_torch.utils import osc_kernel_ab
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        osc_kernel_ab.main([])
