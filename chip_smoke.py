@@ -102,9 +102,13 @@ Phases, each of which must pass (any failure exits non-zero):
    dB, bf16 > 60 dB) and against a float64 oracle on two batch rows
    (float32 at the same floors; bf16 and K6 > 45 dB with cosine > 0.9999;
    K7 > 90 dB at its default resync 32, the other cadences recorded), K6
-   against K2 at the bf16 floor; backward reruns bit-equal; S2's bank
-   stores present in its SASS; kernel, plain version and bound timed; the
-   launches of every kernel equal to the count the sweep implies.
+   against K2 at the bf16 floor (both bank dtypes); backward reruns
+   bit-equal; in the SASS (``cuobjdump``) of the instantiation the
+   training shape runs, K6 has tensor-core products and S2 none, S2 no
+   shared-memory store, and S2 as many fragment transposes (MOVM) as K6
+   and two bf16 packs (F2FP) a transpose, so no fill chain was dropped;
+   kernel, plain version and bound timed; the launches of every kernel
+   equal to the count the sweep implies.
 12. one full-width train step at batch 2 under
    ``set_osc_bwd_contract_dtype('bfloat16')``, card vs CPU (the plain
    backward with the same casts) from the same weights, batch and key:
@@ -1466,8 +1470,12 @@ def check_variant_row(row, shape: str) -> None:
         require(row["copies_equal"], f"{what}: the amplitude copies differ")
 
 
+SASS_OPS = ("STS", "HMMA", "MOVM", "F2FP")
+
+
 def sass_counts(lib, kernel: str):
-    """(STS, HMMA) instruction counts of ``kernel`` in ``lib``'s SASS."""
+    """{opcode: count} of SASS_OPS in ``kernel`` (a substring of one
+    mangled name) in ``lib``'s SASS."""
     import re
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -1476,7 +1484,7 @@ def sass_counts(lib, kernel: str):
                          capture_output=True, text=True, check=True).stdout
     sections = [sec for sec in out.split("Function : ")[1:] if kernel in sec.split("\n")[0]]
     require(len(sections) == 1, f"{kernel} not found once in the SASS of {lib}")
-    return len(re.findall(r"\bSTS\b", sections[0])), len(re.findall(r"\bHMMA\b", sections[0]))
+    return {op: len(re.findall(rf"\b{op}\b", sections[0])) for op in SASS_OPS}
 
 
 def phase_variants(device):
@@ -1488,12 +1496,15 @@ def phase_variants(device):
     from ddsp_tpu_torch.ops.cuda import build
     from ddsp_tpu_torch.utils import osc_sweep
 
-    fill_sts, fill_mma = sass_counts(build.build("osc_banked_bwd"), "osc_fill_only_kernel")
-    k6_sts, k6_mma = sass_counts(build.build("osc_banked_bwd"), "osc_banked_bwd_kernel")
-    log(f"[variants] SASS: osc_fill_only_kernel {fill_sts} STS (bank stores), {fill_mma} HMMA; "
-        f"osc_banked_bwd_kernel {k6_sts} STS, {k6_mma} HMMA")
-    require(fill_sts > 0 and fill_mma == 0 and k6_mma > 0,
-            "S2 lost its bank stores, or K6 its tensor-core products")
+    # the 12-tile walk (H 129..192), which the training shape runs
+    fill = sass_counts(build.build("osc_banked_bwd"), "osc_fill_only_kernelILi12E")
+    k6 = sass_counts(build.build("osc_banked_bwd"), "osc_banked_bwd_kernelILi12E")
+    log(f"[variants] SASS: osc_fill_only_kernel<12> {fill}; osc_banked_bwd_kernel<12> {k6}")
+    require(fill["HMMA"] == 0 and k6["HMMA"] > 0 and fill["STS"] == 0,
+            "S2 has tensor-core products or shared-memory stores, or K6 no products")
+    require(fill["MOVM"] == k6["MOVM"] > 0 and fill["F2FP"] >= 2 * fill["MOVM"]
+            and k6["F2FP"] >= fill["F2FP"],
+            "S2 lost fill packs or transposes that K6 has")
     osc_sweep.reset_launches()  # the main path of this phase from here
     implied = collections.Counter()
     entries = {}

@@ -13,12 +13,17 @@ the TPU's padding:
 * ``osc_fill_only(phase, amps_pad)`` -> (dphase, da_l, da_m, da_r, dloud):
   the same fill with the contractions compiled out, writing what
   ``_kernel_fill_only`` writes (sine of harmonic 1 + cosine of harmonic hb
-  as dphase, the amplitude windows as da, zeros as dloud).
+  as dphase, the amplitude windows as da, zeros as dloud);
+* ``osc_banked_bwd_windows`` launches K6 alone (each frame's window
+  gradients), and
+  ``sincos_seed_mismatches`` counts the arguments where the kernels'
+  branch-free seed sincos differs from ``sincosf`` (0 expected).
 
-CUDA tensors launch the kernels in ``csrc/osc_banked_bwd.cu``; CPU tensors
-take the plain versions :func:`banked_bwd_plain` / :func:`fill_only_plain`;
-anything else raises.  ``BWD_LAUNCHES`` and ``FILL_LAUNCHES`` count kernel
-launches and nothing else.
+CUDA tensors launch the kernels in ``csrc/osc_banked_bwd.cu`` (K6 then
+``osc_frames.osc_overlap_add``, one launch, bit-equal to the plain
+overlap-add); CPU tensors take the plain versions :func:`banked_bwd_plain` /
+:func:`fill_only_plain`; anything else raises.  ``BWD_LAUNCHES`` and
+``FILL_LAUNCHES`` count kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 
 from ddsp_tpu_torch.ops.cuda import build as _build
 from ddsp_tpu_torch.ops.cuda.osc_frames import (
-    overlap_add_windows,
+    osc_overlap_add,
     render_from_phase_bwd_variant_plain,
 )
 from ddsp_tpu_torch.ops.interp import hop_weights_on
@@ -45,7 +50,8 @@ BANK_DTYPES = ("float32", "bfloat16")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "osc_banked_bwd": [_P] * 8 + [_I] * 6 + [_P],
-    "osc_fill_only": [_P] * 5 + [_I] * 4 + [_P],
+    "osc_fill_only": [_P] * 5 + [_I] * 4 + [_P, _P],
+    "osc_sincos_seed_mismatches": [_P, _P],
 }
 
 
@@ -107,17 +113,16 @@ def _check(name, phase, amps_pad, loud_pad=None, g=None, h_start=0) -> str:
     return device.type
 
 
-def osc_banked_bwd(g, phase, amps_pad, loud_pad, h_start: int = 0,
-                   bank_dtype: str = "float32"):
-    """K6 for the audio gradient ``g`` (B, T*hop): (dphase (B, T, hop),
-    d amps_pad (B, T+2, H), d loud_pad (B, T+2)).  CUDA tensors launch the
-    kernel; CPU tensors take :func:`banked_bwd_plain`."""
+def osc_banked_bwd_windows(g, phase, amps_pad, loud_pad, h_start: int = 0,
+                           bank_dtype: str = "float32"):
+    """Launch K6 alone on CUDA tensors: (dphase (B, T, hop), da_win
+    (B, T, 3, H), dl_win (B, T, 3)), each frame's window gradients."""
     global BWD_LAUNCHES
     if bank_dtype not in BANK_DTYPES:
         raise ValueError(f"bank_dtype must be one of {BANK_DTYPES}, got {bank_dtype!r}")
     h_start = int(h_start)
-    if _check("osc_banked_bwd", phase, amps_pad, loud_pad, g, h_start) == "cpu":
-        return banked_bwd_plain(g, phase, amps_pad, loud_pad, h_start, bank_dtype)
+    if _check("osc_banked_bwd", phase, amps_pad, loud_pad, g, h_start) != "cuda":
+        raise ValueError("osc_banked_bwd_windows takes CUDA tensors only")
     b, t, hop = phase.shape
     h = amps_pad.shape[-1]
     device = phase.device
@@ -136,7 +141,22 @@ def osc_banked_bwd(g, phase, amps_pad, loud_pad, h_start: int = 0,
     if rc != 0:
         raise RuntimeError(f"osc_banked_bwd launch failed: CUDA error {rc}")
     BWD_LAUNCHES += 1
-    return (dphase, *overlap_add_windows(da_win, dl_win, t))
+    return dphase, da_win, dl_win
+
+
+def osc_banked_bwd(g, phase, amps_pad, loud_pad, h_start: int = 0,
+                   bank_dtype: str = "float32"):
+    """K6 for the audio gradient ``g`` (B, T*hop): (dphase (B, T, hop),
+    d amps_pad (B, T+2, H), d loud_pad (B, T+2)).  CUDA tensors launch the
+    kernel and the overlap-add kernel; CPU tensors take
+    :func:`banked_bwd_plain`."""
+    if bank_dtype not in BANK_DTYPES:
+        raise ValueError(f"bank_dtype must be one of {BANK_DTYPES}, got {bank_dtype!r}")
+    if _check("osc_banked_bwd", phase, amps_pad, loud_pad, g, int(h_start)) == "cpu":
+        return banked_bwd_plain(g, phase, amps_pad, loud_pad, int(h_start), bank_dtype)
+    dphase, da_win, dl_win = osc_banked_bwd_windows(g, phase, amps_pad, loud_pad, h_start,
+                                                    bank_dtype)
+    return (dphase, *osc_overlap_add(da_win, dl_win, phase.shape[1]))
 
 
 def osc_fill_only(phase, amps_pad) -> Tuple[torch.Tensor, ...]:
@@ -155,9 +175,25 @@ def osc_fill_only(phase, amps_pad) -> Tuple[torch.Tensor, ...]:
         stream = torch.cuda.current_stream(phase.device).cuda_stream
         rc = lib.osc_fill_only(
             phase.data_ptr(), amps_pad.data_ptr(), dphase.data_ptr(),
-            da_win.data_ptr(), dl_win.data_ptr(), b, t, hop, h, stream,
+            da_win.data_ptr(), dl_win.data_ptr(), b, t, hop, h, None, stream,
         )
     if rc != 0:
         raise RuntimeError(f"osc_fill_only launch failed: CUDA error {rc}")
     FILL_LAUNCHES += 1
     return (dphase, da_win[:, :, 0], da_win[:, :, 1], da_win[:, :, 2], dl_win)
+
+
+def sincos_seed_mismatches(device) -> int:
+    """How many of the 1,065,353,216 float fractions f in [0, 1) give the
+    kernels' seed sincos at 2 pi f bits other than CUDA's ``sincosf``
+    (one launch on the card)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("sincos_seed_mismatches runs on a CUDA device")
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        rc = _library().osc_sincos_seed_mismatches(
+            bad.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"osc_sincos_seed_mismatches launch failed: CUDA error {rc}")
+    return int(bad.item())

@@ -1,12 +1,14 @@
-"""Race the oscillator's forward kernels K5, K1 and K7 of two checkouts.
+"""Race the oscillator kernels K5, K1, K7, K6 and S2 of two checkouts.
 
     python -m ddsp_tpu_torch.utils.osc_kernel_ab [--parent=DIR] [--iters=100]
-        [--sass=DIR] [--out=FILE.json]
+        [--kernels=forward,banked] [--sass=DIR] [--out=FILE.json]
 
-Builds ``csrc/osc_hop_slots.cu`` (K5), ``csrc/osc_frames.cu`` (K1) and
-``csrc/osc_cheb.cu`` (K7) of this package and, given ``--parent``, of the
-checkout at DIR (into DIR's own ``ddsp_tpu_torch/_build``), and calls each
-library's C entry on the same seeded card tensors:
+Builds ``csrc/osc_hop_slots.cu`` (K5), ``csrc/osc_frames.cu`` (K1),
+``csrc/osc_cheb.cu`` (K7) and ``csrc/osc_banked_bwd.cu`` (K6, S2) of this
+package and, given ``--parent``, of the checkout at DIR (into DIR's own
+``ddsp_tpu_torch/_build``), and calls each library's C entry on the same
+seeded card tensors.  ``--kernels`` picks the groups: ``forward`` (K5, K1,
+K7) and ``banked`` (K6, S2); both by default.
 
 * ``timed``: K5 at 256, 1024 and 2048 serving slots (hop 512, H=180) on
   both fills, K5 over the 2,752 frame rows of the training shape (B=16,
@@ -26,6 +28,17 @@ library's C entry on the same seeded card tensors:
 * ``samples``: this package's K5 at each samples-a-thread choice q and
   block size (its ``osc_hop_slots_shape``; ``osc_hop_slots`` takes 2 and
   128) at the timed K5 shapes, in a graph;
+* ``banked``: K6 at the training shape on both bank dtypes, the kernel
+  alone and with its overlap-add (this package's one-launch
+  ``osc_overlap_add``; the parent's own plain ``overlap_add_windows``
+  where it has no ``osc_banked_bwd_shape``, as its wrapper ran), and S2,
+  raced as above with ``bound_ms`` chip_smoke.py's (the fill's 7.5 FLOP a
+  point binds); untimed at awkward shapes (hops 128, 200 and 512, H of 1,
+  7, 40, 180 and 301, h_start up to 2048 - H, both bank dtypes): S2's
+  outputs against the parent's (``max_abs_diff``, 0: bit-equal) and K6's
+  gradients against the parent's and the plain version's (dB, and
+  ``bit_equal`` reruns); and this package's K6 at 1, 2, 4 and 8 warps a
+  frame (``osc_banked_bwd_shape``), in a graph;
 * given ``--sass``, the SASS of this package's three libraries
   (``cuobjdump``) written there, and for each kernel every loop (a
   backward branch): its address range and instruction count.
@@ -49,9 +62,9 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ddsp_tpu_torch.ops.cuda import build
+from ddsp_tpu_torch.ops.cuda import build, osc_banked_bwd, osc_frames
 from ddsp_tpu_torch.ops.interp import hop_weights_on
-from ddsp_tpu_torch.utils.osc_sweep import operands
+from ddsp_tpu_torch.utils.osc_sweep import operands, snr_db
 
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, 700 W (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
@@ -68,23 +81,35 @@ SIGNATURES = {
     "osc_hop_slots": {"osc_hop_slots": [_P] * 7 + [_I] * 5 + [_P]},
     "osc_frames": {"osc_frames_fwd": [_P] * 5 + [_I] * 9 + [_P]},
     "osc_cheb": {"osc_cheb_fwd": [_P] * 5 + [_I] * 5 + [_P]},
+    "osc_banked_bwd": {"osc_banked_bwd": [_P] * 8 + [_I] * 6 + [_P]},
 }
-OPTIONAL = {  # this package's K5 only
-    "osc_hop_slots_shape": [_P] * 7 + [_I] * 7 + [_P],
+OPTIONAL = {  # this package's K5 and K6 entries; S2 with its `sink` since K6 has a shape entry
+    "osc_hop_slots": {"osc_hop_slots_shape": [_P] * 7 + [_I] * 7 + [_P]},
+    "osc_banked_bwd": {"osc_banked_bwd_shape": [_P] * 8 + [_I] * 7 + [_P]},
 }
+FILL_ONLY = {False: [_P] * 5 + [_I] * 4 + [_P], True: [_P] * 5 + [_I] * 4 + [_P, _P]}
+GROUPS = {"forward": ("osc_hop_slots", "osc_frames", "osc_cheb"), "banked": ("osc_banked_bwd",)}
+WARPS = (1, 2, 4, 8)
+BANKED_BITS = ((2, 3, 128, 1, 0), (2, 3, 200, 7, 5), (2, 4, 128, 40, 8), (1, 2, 200, 301, 1747),
+               (2, 3, 512, 180, 0), (1, 3, 200, 40, 2008))  # B, T, hop, H, h_start
 
 
 class Kernels:
-    """One checkout's K5, K1 and K7 libraries, called on the current stream."""
+    """One checkout's libraries (``names``, keys of SIGNATURES), called on
+    the current stream."""
 
-    def __init__(self, root: Optional[Path] = None):
+    def __init__(self, root: Optional[Path] = None, names=tuple(SIGNATURES)):
         csrc = build.CSRC if root is None else root / "ddsp_tpu_torch" / "csrc"
         out = build.BUILD_DIR if root is None else root / "ddsp_tpu_torch" / "_build"
-        self.paths = {name: build.build(name, csrc, out) for name in SIGNATURES}
+        self.paths = {name: build.build(name, csrc, out) for name in names}
         self.libs = {}
-        for name, sigs in SIGNATURES.items():
+        for name in names:
             lib = ctypes.CDLL(str(self.paths[name]))
-            for fn, argtypes in {**sigs, **(OPTIONAL if name == "osc_hop_slots" else {})}.items():
+            sigs = {**SIGNATURES[name], **OPTIONAL.get(name, {})}
+            if name == "osc_banked_bwd":
+                self.shaped = hasattr(lib, "osc_banked_bwd_shape")
+                sigs["osc_fill_only"] = FILL_ONLY[self.shaped]
+            for fn, argtypes in sigs.items():
                 if hasattr(lib, fn):
                     getattr(lib, fn).argtypes = argtypes
                     getattr(lib, fn).restype = _I
@@ -127,6 +152,43 @@ class Kernels:
             b, t, hop, amps.shape[-1], resync, torch.cuda.current_stream().cuda_stream)
         self._check(rc, "osc_cheb_fwd")
         return out
+
+
+    def banked_bwd(self, g, phase, amps, loud, h_start=0, bank_dtype="float32", warps=None):
+        """K6 alone: (dphase, da_win (B, T, 3, H), dl_win (B, T, 3))."""
+        b, t, hop = phase.shape
+        h = amps.shape[-1]
+        w = hop_weights_on(hop, phase.device)
+        outs = (torch.empty_like(phase), torch.empty((b, t, 3, h), device=phase.device),
+                torch.empty((b, t, 3), device=phase.device))
+        args = [x.data_ptr() for x in (g, phase, amps, loud, w, *outs)]
+        args += [b, t, hop, h, h_start, int(bank_dtype == "bfloat16")]
+        lib = self.libs["osc_banked_bwd"]
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = (lib.osc_banked_bwd(*args, stream) if warps is None
+              else lib.osc_banked_bwd_shape(*args, warps, stream))
+        self._check(rc, "osc_banked_bwd")
+        return outs
+
+    def banked_bwd_full(self, g, phase, amps, loud, h_start=0, bank_dtype="float32"):
+        """K6 with the overlap-add its checkout's wrapper runs: (dphase,
+        d amps_pad, d loud_pad)."""
+        dphase, da_win, dl_win = self.banked_bwd(g, phase, amps, loud, h_start, bank_dtype)
+        add = osc_frames.osc_overlap_add if self.shaped else osc_frames.overlap_add_windows
+        return (dphase, *add(da_win, dl_win, phase.shape[1]))
+
+    def fill_only(self, phase, amps):
+        """S2: (dphase, da_win (B, T, 3, H), dl_win (B, T, 3))."""
+        b, t, hop = phase.shape
+        h = amps.shape[-1]
+        outs = (torch.empty_like(phase), torch.empty((b, t, 3, h), device=phase.device),
+                torch.empty((b, t, 3), device=phase.device))
+        sink = [None] if self.shaped else []
+        rc = self.libs["osc_banked_bwd"].osc_fill_only(
+            phase.data_ptr(), amps.data_ptr(), *[x.data_ptr() for x in outs], b, t, hop, h,
+            *sink, torch.cuda.current_stream().cuda_stream)
+        self._check(rc, "osc_fill_only")
+        return outs
 
 
 def slot_operands(n: int, hop: int, h: int, device, seed: int):
@@ -194,8 +256,13 @@ def graph_ms(fn: Callable, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a - b).abs().max())
+def _tensors(x):
+    return list(x) if isinstance(x, (tuple, list)) else [x]
+
+
+def max_abs_diff(a, b) -> float:
+    """The largest |a - b| over a tensor or over a tuple of them."""
+    return max(float((x - y).abs().max()) for x, y in zip(_tensors(a), _tensors(b)))
 
 
 def race(case: str, fns: Dict[str, Callable], iters: int, bound) -> dict:
@@ -204,7 +271,8 @@ def race(case: str, fns: Dict[str, Callable], iters: int, bound) -> dict:
     parent."""
     outs = {k: fn() for k, fn in fns.items()}
     torch.cuda.synchronize()
-    row = dict(case=case, finite=all(bool(torch.isfinite(o).all()) for o in outs.values()))
+    row = dict(case=case, finite=all(bool(torch.isfinite(x).all())
+                                     for o in outs.values() for x in _tensors(o)))
     if "parent" in outs:
         row["max_abs_diff"] = max_abs_diff(outs["parent"], outs["change"])
     del outs
@@ -264,6 +332,71 @@ def bit_cases(kernels: Dict[str, Kernels], device) -> List[dict]:
     return rows
 
 
+def banked_timed_cases(kernels: Dict[str, Kernels], device, iters: int) -> List[dict]:
+    """K6 (both bank dtypes, alone and with its overlap-add) and S2 at the
+    training shape, raced."""
+    b, t, hop, h = FRAMES
+    phase, amps, loud, g = operands(b, t, hop, h, device)
+    samples = b * t * hop
+    rows_in = b * (t + 2)
+    # bytes past dphase, which bound_ms adds: K6 reads g, phase, amps_pad,
+    # loud_pad, w and writes their gradients; S2 reads phase, amps_pad and
+    # writes the windows' copies and zeros
+    k6_bytes = 4 * (2 * samples + 2 * rows_in * (h + 1) + 3 * hop)
+    s2_bytes = 4 * (samples + rows_in * h + 3 * b * t * (h + 1))
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        rows.append(race(f"K6 B=16 T=172 {dtype} alone",
+                         {n: (lambda k=k, d=dtype: k.banked_bwd(g, phase, amps, loud, 0, d))
+                          for n, k in kernels.items()},
+                         iters, bound_ms(samples, h, k6_bytes)))
+        rows.append(race(f"K6 B=16 T=172 {dtype} with its overlap-add",
+                         {n: (lambda k=k, d=dtype: k.banked_bwd_full(g, phase, amps, loud, 0, d))
+                          for n, k in kernels.items()},
+                         iters, bound_ms(samples, h, k6_bytes)))
+    rows.append(race("S2 B=16 T=172", {n: (lambda k=k: k.fill_only(phase, amps))
+                                       for n, k in kernels.items()},
+                     iters, bound_ms(samples, h, s2_bytes)))
+    return rows
+
+
+def banked_bit_cases(kernels: Dict[str, Kernels], device) -> List[dict]:
+    """S2 against the parent (0: bit-equal) and K6's gradients against the
+    parent's and the plain version's, untimed, at awkward shapes."""
+    rows = []
+    for b, t, hop, h, h_start in BANKED_BITS:
+        phase, amps, loud, g = operands(b, t, hop, h, device, seed=b + t + hop + h)
+        shape = f"B={b} T={t} hop={hop} H={h}"
+        fills = [kk.fill_only(phase, amps) for kk in kernels.values()]
+        rows.append(dict(case=f"S2 {shape}", max_abs_diff=max_abs_diff(*fills)))
+        for dtype in ("float32", "bfloat16"):
+            got = {n: kk.banked_bwd_full(g, phase, amps, loud, h_start, dtype)
+                   for n, kk in kernels.items()}
+            again = kernels["change"].banked_bwd_full(g, phase, amps, loud, h_start, dtype)
+            plain = osc_banked_bwd.banked_bwd_plain(g, phase, amps, loud, h_start, dtype)
+            row = dict(case=f"K6 {shape} h_start={h_start} {dtype}",
+                       bit_equal=all(bool(torch.equal(x, y)) for x, y in zip(got["change"], again)),
+                       db_plain=[snr_db(p, x) for p, x in zip(plain, got["change"])])
+            if "parent" in got:
+                row["db_parent"] = [snr_db(p, x) for p, x in zip(got["parent"], got["change"])]
+                row["parent_db_plain"] = [snr_db(p, x) for p, x in zip(plain, got["parent"])]
+            rows.append(row)
+    return rows
+
+
+def warp_cases(change: Kernels, device, iters: int) -> List[dict]:
+    """This package's K6 at each number of warps a frame, in a graph."""
+    b, t, hop, h = FRAMES
+    phase, amps, loud, g = operands(b, t, hop, h, device)
+    ref = change.banked_bwd(g, phase, amps, loud)
+    row = dict(case="K6 B=16 T=172 float32 warps a frame")
+    for warps in WARPS:
+        fn = lambda n=warps: change.banked_bwd(g, phase, amps, loud, warps=n)  # noqa: E731
+        row[f"w{warps}_max_abs_diff"] = max_abs_diff(ref, fn())
+        row[f"w{warps}_graph_ms"] = [graph_ms(fn, iters), graph_ms(fn, iters)]
+    return [row]
+
+
 def sample_cases(change: Kernels, device, iters: int) -> List[dict]:
     """K5 at each samples-a-thread choice and block size, in a graph."""
     b, t, hop, h = FRAMES
@@ -320,22 +453,33 @@ def main(argv=None) -> List[dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, help="root of another checkout to race")
     ap.add_argument("--iters", type=int, default=100)
+    ap.add_argument("--kernels", default="forward,banked",
+                    help="comma-separated groups: forward (K5, K1, K7), banked (K6, S2)")
     ap.add_argument("--sass", type=Path, help="directory for the SASS listings")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("osc_kernel_ab needs a CUDA device")
     device = torch.device("cuda", 0)
-    kernels = {"change": Kernels()}
+    groups = args.kernels.split(",")
+    if not groups or any(grp not in GROUPS for grp in groups):
+        raise ValueError(f"--kernels takes groups of {sorted(GROUPS)}, got {args.kernels!r}")
+    names = tuple(n for grp in groups for n in GROUPS[grp])
+    kernels = {"change": Kernels(names=names)}
     if args.parent is not None:
-        kernels = {"parent": Kernels(args.parent.resolve()), **kernels}
+        kernels = {"parent": Kernels(args.parent.resolve(), names), **kernels}
     rows = [dict(device=torch.cuda.get_device_name(device),
                  libraries={k: {n: str(p) for n, p in v.paths.items()}
                             for k, v in kernels.items()})]
-    if args.parent is not None:
-        rows += bit_cases(kernels, device)
-    rows += timed_cases(kernels, device, args.iters)
-    rows += sample_cases(kernels["change"], device, args.iters)
+    if "forward" in groups:
+        if args.parent is not None:
+            rows += bit_cases(kernels, device)
+        rows += timed_cases(kernels, device, args.iters)
+        rows += sample_cases(kernels["change"], device, args.iters)
+    if "banked" in groups:
+        rows += banked_bit_cases(kernels, device)
+        rows += banked_timed_cases(kernels, device, args.iters)
+        rows += warp_cases(kernels["change"], device, args.iters)
     if args.sass is not None:
         rows += dump_sass(kernels["change"], args.sass)
     for row in rows:

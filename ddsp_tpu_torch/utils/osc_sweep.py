@@ -11,8 +11,8 @@ The port of the JAX package's oscillator sweeps, on the port's kernels
 * ``fwd`` -- ``scripts/osc_v2_sweep.py`` (:94-140): the forward variants
   (K5 over frame rows, K1 exact, the K8 fills rot / rot4 / cheb8 with their
   re-seed cadences and ``k_chunk``, bf16 operands, K7);
-* ``bwd`` -- its ``bwd`` mode (:176-197): K6, K2 and the K8 backward
-  variants (fills, bf16 bank, bf16 contraction);
+* ``bwd`` -- its ``bwd`` mode (:176-197): K6 (on both bank dtypes), K2
+  and the K8 backward variants (fills, bf16 bank, bf16 contraction);
 * ``resync`` -- ``scripts/osc_kernel_sweep.py``: K7 at ``resync`` 16, 32,
   64 and 180, now with ``impl='cheb'`` (:80-84 there passes ``resync``
   without it, so it timed the banked kernel twelve times);
@@ -74,6 +74,7 @@ FWD_VARIANTS = (  # (label, pallas_forward options); scripts/osc_v2_sweep.py:95-
 )
 BWD_VARIANTS = (  # (label, pallas_backward options); osc_v2_sweep.py:177-187
     ("bwd banked (K6)", dict(impl="banked")),
+    ("bwd banked (K6) bf16 bank", dict(impl="banked", bank_dtype="bfloat16")),
     ("bwd banked2 exact (K2)", dict(impl="banked2", fill="exact")),
     ("bwd banked2 exact contract bf16", dict(impl="banked2", fill="exact",
                                              contract_dtype="bfloat16")),

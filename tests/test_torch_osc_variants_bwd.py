@@ -44,12 +44,12 @@ def _cos(want, got) -> float:
     return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
 
 
-def _operands(seed=3):
+def _operands(seed=3, hop=HOP, h=H):
     rng = np.random.default_rng(seed)
-    return (rng.uniform(0, 1, (B, T, HOP)).astype(np.float32),
-            (rng.uniform(0, 1, (B, T + 2, H)) / H).astype(np.float32),
+    return (rng.uniform(0, 1, (B, T, hop)).astype(np.float32),
+            (rng.uniform(0, 1, (B, T + 2, h)) / h).astype(np.float32),
             rng.uniform(0, 1, (B, T + 2)).astype(np.float32),
-            rng.standard_normal((B, T * HOP)).astype(np.float32))
+            rng.standard_normal((B, T * hop)).astype(np.float32))
 
 
 @pytest.fixture
@@ -86,6 +86,11 @@ BWD_CASES = [
     (dict(impl="banked"), "one-pass"),
     (dict(impl="banked", h_start=8), "one-pass"),
     (dict(impl="banked", bank_dtype="bfloat16"), "bf16"),
+    # K6 at a hop that is no multiple of its 16-sample k-steps, and at H = 7
+    # (one 16-harmonic tile, 9 padded harmonics); "hop" and "harmonics"
+    # set the operands' shape, not an option
+    (dict(impl="banked", hop=200), "one-pass"),
+    (dict(impl="banked", harmonics=7, h_start=5), "one-pass"),
 ]
 
 
@@ -95,7 +100,8 @@ def test_backward_variant_matches_interpreted_jax(interpret, kw, grade):
 
     from ddsp_tpu.ops.pallas.oscillator import _pallas_backward
 
-    phase, amps, loud, g = _operands()
+    kw = dict(kw)
+    phase, amps, loud, g = _operands(hop=kw.pop("hop", HOP), h=kw.pop("harmonics", H))
     want = _pallas_backward(*(jnp.asarray(x) for x in (phase, amps, loud, g)), 4, **kw)
     got = osc_variants.pallas_backward(*(torch.from_numpy(x) for x in (phase, amps, loud, g)),
                                        4, **kw)
@@ -254,6 +260,80 @@ def test_backward_kernels_match_plain_versions_on_card(cuda_device):
         assert r["finite"] and r.get("bit_equal", True) and r.get("copies_equal", True), r
         dbs = r["db_plain"].values() if isinstance(r["db_plain"], dict) else [r["db_plain"]]
         assert min(dbs) > (60.0 if r["bf16"] else 80.0), r
+
+
+# K6 and S2 at the shapes their warp layout makes awkward: H of 1, 7 and
+# 301 (one tile, a ragged tile, tiles past the 12 held in registers), hops
+# of 128 and 200 (200: a k-step of 8 live samples), h_start up to 2048 - H.
+BANKED_SHAPES = [(2, 3, 128, 1, 0), (2, 3, 200, 7, 5), (2, 4, 128, 40, 8),
+                 (1, 2, 200, 301, 1747), (2, 3, 200, 40, 2008), (2, 4, 512, 180, 0)]
+
+
+def _card_operands(device, b, t, hop, h):
+    rng = np.random.default_rng(b + t + hop + h)
+    arrays = (rng.uniform(0, 1, (b, t, hop)), rng.uniform(0, 1, (b, t + 2, h)) / h,
+              rng.uniform(0, 1, (b, t + 2)), rng.standard_normal((b, t * hop)))
+    return [torch.tensor(x, dtype=torch.float32, device=device) for x in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bank_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,hop,h,h_start", BANKED_SHAPES)
+def test_k6_at_awkward_shapes_on_card(cuda_device, b, t, hop, h, h_start, bank_dtype):
+    """K6 against its plain version: each gradient finite and > 60 dB (one
+    bf16 pass both sides, float32 sums in another order), reruns bit-equal,
+    one launch a call."""
+    phase, amps, loud, g = _card_operands(cuda_device, b, t, hop, h)
+    before = osc_banked_bwd.BWD_LAUNCHES
+    got = osc_banked_bwd.osc_banked_bwd(g, phase, amps, loud, h_start, bank_dtype)
+    again = osc_banked_bwd.osc_banked_bwd(g, phase, amps, loud, h_start, bank_dtype)
+    torch.cuda.synchronize()
+    assert osc_banked_bwd.BWD_LAUNCHES == before + 2
+    want = osc_banked_bwd.banked_bwd_plain(g, phase, amps, loud, h_start, bank_dtype)
+    for label, a, c, c2 in zip(NAMES, want, got, again):
+        assert c.shape == a.shape and bool(torch.isfinite(c).all()), label
+        assert torch.equal(c, c2), label
+        assert _snr(a.cpu().numpy(), c.cpu().numpy()) > 60.0, label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,hop,h,h_start", BANKED_SHAPES)
+def test_fill_only_at_awkward_shapes_on_card(cuda_device, b, t, hop, h, h_start):
+    """S2 bit-equal to its plain version (the rotation fill's bits) and its
+    amplitude copies and zeros equal, one launch a call."""
+    phase, amps, _, _ = _card_operands(cuda_device, b, t, hop, h)
+    before = osc_banked_bwd.FILL_LAUNCHES
+    got = osc_banked_bwd.osc_fill_only(phase, amps)
+    torch.cuda.synchronize()
+    assert osc_banked_bwd.FILL_LAUNCHES == before + 1
+    for a, c in zip(osc_banked_bwd.fill_only_plain(phase, amps), got):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_seed_sincos_has_the_bits_of_sincosf_on_card(cuda_device):
+    """The kernels' branch-free seeds equal sincosf at every float fraction."""
+    assert osc_banked_bwd.sincos_seed_mismatches(cuda_device) == 0
+
+
+@pytest.mark.cuda
+def test_k6_entry_launches_the_overlap_add_kernel(cuda_device, monkeypatch):
+    """On the card K6's entry sums the window gradients with
+    osc_frames.osc_overlap_add (one launch), never the plain loop."""
+    def plain(*args):
+        raise AssertionError("the plain overlap-add ran on the card")
+
+    monkeypatch.setattr(osc_frames, "overlap_add_windows", plain)
+    phase, amps, loud, g = _card_operands(cuda_device, 2, 5, 128, 40)
+    before = (osc_frames.OVERLAP_LAUNCHES, osc_banked_bwd.BWD_LAUNCHES)
+    got = osc_variants.pallas_backward(phase, amps, loud, g, h_start=3, impl="banked")
+    torch.cuda.synchronize()
+    assert (osc_frames.OVERLAP_LAUNCHES, osc_banked_bwd.BWD_LAUNCHES) == (before[0] + 1,
+                                                                          before[1] + 1)
+    monkeypatch.undo()
+    _, da_win, dl_win = osc_banked_bwd.osc_banked_bwd_windows(g, phase, amps, loud, 3)
+    for a, c in zip(osc_frames.overlap_add_windows(da_win, dl_win, 5), got[1:]):
+        assert torch.equal(a, c)
 
 
 @pytest.mark.cuda
