@@ -11,11 +11,11 @@ Phases, each of which must pass (any failure exits non-zero):
 2. kernel vs plain: ``osc_hop_slots`` on the card's default fill (the
    rotation fill of ``_kernel_banked``) is held against its plain PyTorch
    version on that fill at the serving shapes (N=256, 1024 and 2048 slots,
-   hop 512, H=180) and at a ragged shape (N=13, hop 128, H=40), SNR > 90
-   dB, and so is its exact fill ('xla'); all are timed with CUDA events
-   beside the bound, the kernel also inside a CUDA graph (its device time:
-   a call from Python takes longer on the host than the kernel on the
-   card);
+   hop 512, H=180), at the real-time hop's (N=1, hop 512, H=180) and at a
+   ragged shape (N=13, hop 128, H=40), SNR > 90 dB, and so is its exact
+   fill ('xla'); all are timed with CUDA events beside the bound, the
+   kernel also inside a CUDA graph (its device time: a call from Python
+   takes longer on the host than the kernel on the card);
 3. the serving step at full default width: ``MultiStreamServer`` with 256
    slots and seeded random weights for 100 hops of tone plus noise.  The
    kernel's launch count must grow by one per hop, all on the rotation fill
@@ -133,10 +133,34 @@ Phases, each of which must pass (any failure exits non-zero):
    norm plus 1e-6 of the total, grad_norm 1e-3, loss as phase 6), S1
    launched exactly once for the gradients and once in the step, each
    time through the fused entry.
+14. the single-stream real-time path at full ``Config()`` width, batch 1,
+   seeded random weights: ``BlockSynthesizer`` over 200 hops of tone plus
+   noise and its flush, bit-equal to ``utils/slot_parity.lone_stream`` plus
+   the flush step, K5 launched exactly 1 (warm-up) + 200 + 1 (flush)
+   times, all on the rotation fill, counted from its construction to the
+   flush; every hop's K5 output in the lone-stream run held against its
+   plain version on the same operands, SNR > 90 dB; the median and p99 ms
+   per ``process`` call and ``missed_deadlines`` against the 11.61 ms hop,
+   printed, not judged; ``ThreadedSynthesizer`` with the 200 hops pushed
+   at the hop's pace, its output past the latency pre-fill bit-equal to
+   that run (its underruns and its worker's ms a call printed);
+   ``run_file_loopback`` over a 2 s synthetic WAV, its output equal to a
+   BlockSynthesizer run written the same way (its ms a call printed);
+   ``oscillator_live`` (batch 1, 4 frames with context) against its plain
+   version on the card > 90 dB, K1 launched once a call on the rotation
+   fill; last, the card's busy ms and kernel launches a hop over a
+   profiled window;
+15. the precision options: one full-width train step at batch 2 with
+   ``compute_dtype='bfloat16'``, card vs CPU, at phase 9's bf16 criterion;
+   CREPE at full width with ``crepe_compute_dtype='bfloat16'`` through
+   ``f0_encoder_apply`` on two 2 s tones, card vs CPU, argmax bins equal
+   (the first audio seed whose bins agree, as phase 9 chooses), the
+   logits' agreement printed.
 
 The line before the last is a JSON object describing each kernel (launches
-on its main path, agreement with its plain version, kernel, plain, bound
-and library times); the last line is ``{"ok": true, "device": {...}}``.
+on its main path, the real-time path's launches of K5 and K1 as
+``launches_realtime``, agreement with its plain version, kernel, plain,
+bound and library times); the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA the script exits non-zero and prints no result.  It imports
 nothing of jax or ddsp_tpu.
 """
@@ -245,6 +269,11 @@ FT_CLI_STEPS = 10
 CT_SHAPES = ((16, 98304), (3, 6144))
 CT_PLAIN_FLOOR_DB, CT_F64_FLOOR_DB = 70.0, 44.0
 CT_ITERS = 20
+# The real-time path (phase 14): hops of one stream at batch 1, and the
+# frames of an oscillator_live block.
+RT_BLOCKS = 200
+RT_LIVE_FRAMES = 4
+RT_PROFILE_HOPS = 30
 
 
 def log(msg: str) -> None:
@@ -355,14 +384,14 @@ def kernel_bound_ms(n: int, hop: int, h: int):
 def phase_kernel(device):
     """K5 on the card's default fill (the rotation fill of ``_kernel_banked``)
     against its plain version on that fill at 256, 1024 and 2048 serving
-    slots and a ragged shape; the exact fill (``osc_impl`` 'xla') held and
-    timed beside it."""
+    slots, the real-time path's one slot and a ragged shape; the exact fill
+    (``osc_impl`` 'xla') held and timed beside it."""
     import torch
 
     from ddsp_tpu_torch.ops.cuda import oscillator as osc_cuda
 
     result = {"slots": {}}
-    for n, hop, h in (*((n, 512, 180) for n in DEADLINE_SLOTS), (13, 128, 40)):
+    for n, hop, h in (*((n, 512, 180) for n in DEADLINE_SLOTS), (1, 512, 180), (13, 128, 40)):
         inputs = kernel_inputs(n, hop, h, device, seed=n)
         for fill in ("rot", "exact"):
             got = osc_cuda.osc_hop_slots(*inputs, fill=fill)
@@ -386,7 +415,7 @@ def phase_kernel(device):
                 f"graph), plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by})")
             row = dict(snr_db=snr, max_abs_err=err, ms=kernel_ms, graph_ms=in_graph_ms,
                        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-            if n in DEADLINE_SLOTS:
+            if n in DEADLINE_SLOTS or n == 1:
                 result["slots"].setdefault(str(n), {})[fill] = row
             if n == N_SLOTS and fill == "rot":
                 result.update(row, fill="rot")
@@ -1778,6 +1807,295 @@ def phase_ct_conv(device):
     return result
 
 
+# --------------------------------------------------------------- phase 14
+
+
+def ring_recorder(ring):
+    """Make ``ring.read`` also keep what it returns: the samples a
+    ThreadedSynthesizer hands out, without the zeros an underrun adds."""
+    read, real = ring.read, []
+    ring.read = lambda n: real.append(read(n)) or real[-1]
+    return read, real
+
+
+def live_plain(controls, context, conf, phase):
+    """``oscillator_live``'s plain version on the same tensors: the same
+    padding, Nyquist normalisation and phase, then K1's plain rot render."""
+    import torch
+
+    from ddsp_tpu_torch.ops.cuda import osc_frames
+    from ddsp_tpu_torch.ops.oscillator import _fundamental_phase_cycles, nyquist_normalized_amps
+
+    f0, c, a = (torch.cat([context["prev"][k], controls[k], context["next"][k]], 1)
+                for k in ("f0", "c", "a"))
+    amps = nyquist_normalized_amps(f0, c, conf.sample_rate)
+    phase1 = _fundamental_phase_cycles(f0[..., 0], conf.hop_length, conf.sample_rate, phase)
+    return osc_frames.render_from_phase_variant_plain(phase1, amps, a[..., 0], 0, "rot")
+
+
+def phase_realtime(device):
+    """The single-stream real-time path at full width, batch 1: the
+    BlockSynthesizer (its warm-up, RT_BLOCKS hops and the flush: the main
+    path, counted), the ThreadedSynthesizer at the hop's pace, the WAV
+    loopback and ``oscillator_live``."""
+    import torch
+
+    from ddsp_tpu_torch.config import Config
+    from ddsp_tpu_torch.data.audio_io import read_wav, write_wav
+    from ddsp_tpu_torch.models.controller import decoder_init
+    from ddsp_tpu_torch.models.crepe import crepe_init
+    from ddsp_tpu_torch.models.synths import oscillator_live
+    from ddsp_tpu_torch.ops.cuda import osc_frames
+    from ddsp_tpu_torch.ops.cuda import oscillator as osc_cuda
+    from ddsp_tpu_torch.ops.fir import PRNGKey
+    from ddsp_tpu_torch.runtime.jack_io import run_file_loopback
+    from ddsp_tpu_torch.runtime.streaming import BlockSynthesizer
+    from ddsp_tpu_torch.runtime.threaded import ThreadedSynthesizer
+    from ddsp_tpu_torch.utils.profile_realtime import call_stats, timed_synthesizers
+    from ddsp_tpu_torch.utils.slot_parity import lone_stream, tone_blocks
+
+    conf = Config()
+    hop, sr = conf.hop_length, conf.sample_rate
+    deadline_ms = 1e3 * hop / sr
+    params, crepe = decoder_init(conf, seed=SEED), crepe_init(conf.crepe_capacity, seed=SEED + 1)
+    blocks = tone_blocks(1, RT_BLOCKS, hop, sr, SEED + 14)[:, 0]
+    rot = osc_cuda.variant_name("rot")
+
+    osc_cuda.LAUNCHES = 0  # from here to the read below: the main path
+    osc_cuda.VARIANT_LAUNCHES.clear()
+    synth = BlockSynthesizer(params, crepe, conf, device=device)
+    outs, times = [], []
+    for b in blocks:
+        t0 = time.perf_counter()
+        outs.append(synth.process(b))
+        times.append(1e3 * (time.perf_counter() - t0))
+    outs.append(synth.flush())
+    launches, by_fill = osc_cuda.LAUNCHES, dict(osc_cuda.VARIANT_LAUNCHES)
+    out = np.stack(outs)
+    log(f"[realtime] BlockSynthesizer, batch 1, {RT_BLOCKS} hops + flush at full width: K5 "
+        f"launched {launches} times {by_fill} (1 warm-up + {RT_BLOCKS} + 1 flush expected)")
+    require(by_fill == {rot: RT_BLOCKS + 2} and launches == RT_BLOCKS + 2,
+            f"BlockSynthesizer launched K5 {by_fill}, not {RT_BLOCKS + 2} x {rot}")
+    require(np.isfinite(out).all() and np.abs(out[2:]).max() > 1e-3,
+            "BlockSynthesizer output not finite or silent")
+    # noise seed 0: the real-time entry points' default; each K5 call of
+    # this oracle run (the same steps) is kept and held against the plain
+    # version on its operands, the real-time hop's N = 1
+    calls, launch = [], osc_cuda.osc_hop_slots
+
+    def recorded(*args, **kwargs):
+        calls.append((args, kwargs, launch(*args, **kwargs)))
+        return calls[-1][2]
+
+    osc_cuda.osc_hop_slots = recorded
+    try:
+        lone, _ = lone_stream(params, crepe, conf, PRNGKey(0, device), blocks, device,
+                              flush=True)
+    finally:
+        osc_cuda.osc_hop_slots = launch
+    require(np.array_equal(out, lone), "BlockSynthesizer differs from the lone-stream steps: max "
+            f"|diff| {np.abs(out - lone).max():.3e}")
+    require(len(calls) == RT_BLOCKS + 1 and all(c[0][0].shape == (1, hop) for c in calls),
+            f"the lone-stream run made {len(calls)} K5 calls, not {RT_BLOCKS + 1} at N = 1")
+    k5 = torch.cat([c[2] for c in calls]).cpu().numpy()
+    k5_plain = torch.cat([osc_cuda.render_hop_slots_plain(*a, **kw) for a, kw, _ in calls]
+                         ).cpu().numpy()
+    k5_snr, k5_err = snr_db(k5_plain, k5), float(np.abs(k5 - k5_plain).max())
+    log(f"[realtime] K5 at N = 1, H = {conf.n_harmonics}, hop {hop}, {len(calls)} hops of the "
+        f"lone-stream run vs its plain version on the same operands: SNR {k5_snr:.2f} dB, "
+        f"max |err| {k5_err:.3e}")
+    require(k5_snr > KERNEL_SNR_FLOOR_DB, f"K5 at N = 1 vs plain {k5_snr:.2f} dB <= "
+            f"{KERNEL_SNR_FLOOR_DB}")
+    median, p99 = (float(np.percentile(times, q)) for q in (50, 99))
+    log(f"[realtime] ms per process call: median {median:.3f}, p99 {p99:.3f}, max "
+        f"{max(times):.3f}; missed_deadlines {synth.missed_deadlines} of {RT_BLOCKS} against "
+        f"{deadline_ms:.2f} ms; bit-equal to lone_stream + flush")
+    result = {"launches": launches, "k5_snr_db": k5_snr, "median_ms": median, "p99_ms": p99,
+              "missed_deadlines": synth.missed_deadlines, "deadline_ms": deadline_ms}
+
+    # the threaded facade, hops pushed at the hop's pace, each call of its
+    # worker timed
+    with timed_synthesizers() as worker:
+        threaded = ThreadedSynthesizer(params, crepe, conf, device=device)
+    read, real = ring_recorder(threaded._out)
+    try:
+        t_start = time.perf_counter()
+        for i, b in enumerate(blocks):
+            time.sleep(max(0.0, t_start + i * hop / sr - time.perf_counter()))
+            threaded.push(b)
+            threaded.pull(hop)
+        deadline = time.monotonic() + 60.0
+        while threaded._synth.blocks < RT_BLOCKS and time.monotonic() < deadline:
+            time.sleep(0.01)
+        real.append(read(threaded._out.readable()))
+    finally:
+        threaded.close()
+    stream, lat = np.concatenate(real), threaded.latency_hops * hop
+    require(threaded._synth.blocks == RT_BLOCKS and not threaded._thread.is_alive(),
+            f"ThreadedSynthesizer worker processed {threaded._synth.blocks} of {RT_BLOCKS} hops")
+    require(stream.shape == (lat + RT_BLOCKS * hop,) and not stream[:lat].any()
+            and np.array_equal(stream[lat:], out[:RT_BLOCKS].reshape(-1)),
+            "ThreadedSynthesizer stream differs from the BlockSynthesizer run")
+    worker = call_stats(worker.made[0].call_ms, deadline_ms)
+    log(f"[realtime] ThreadedSynthesizer at the hop's pace: {RT_BLOCKS} hops, underruns "
+        f"{threaded.underruns}, worker missed_deadlines {threaded._synth.missed_deadlines}; its "
+        f"stream past the {threaded.latency_hops}-hop pre-fill bit-equal to the BlockSynthesizer;"
+        f" the worker's ms a call: median {worker['median_ms']:.3f}, p90 {worker['p90_ms']:.3f}, "
+        f"p99 {worker['p99_ms']:.3f}, max {worker['max_ms']:.3f}")
+    result.update(underruns=threaded.underruns, worker=worker)
+
+    # the WAV loopback over a 2 s synthetic file
+    with tempfile.TemporaryDirectory() as tmp:
+        in_path, out_path = os.path.join(tmp, "in.wav"), os.path.join(tmp, "out.wav")
+        n = 2 * sr // hop
+        write_wav(in_path, tone_blocks(1, n, hop, sr, SEED + 15)[:, 0].reshape(-1), sr)
+        with timed_synthesizers() as loop:
+            stats = run_file_loopback(params, crepe, conf, in_path, out_path, device=device)
+        got = read_wav(out_path)[0]
+        check = BlockSynthesizer(params, crepe, conf, device=device)
+        rendered = [check.process(b) for b in read_wav(in_path)[0][0][: n * hop].reshape(n, hop)]
+        rendered = np.concatenate(rendered[1:] + [check.flush()])
+        write_wav(os.path.join(tmp, "want.wav"), rendered / max(1.0, np.abs(rendered).max() / 0.9), sr)
+        want = read_wav(os.path.join(tmp, "want.wav"))[0]
+    require(stats["blocks"] == n and got.shape == (1, n * hop) and np.array_equal(got, want),
+            f"run_file_loopback: {stats}, output {got.shape} differs from the BlockSynthesizer's")
+    loop = call_stats(loop.made[0].call_ms, deadline_ms)
+    log(f"[realtime] run_file_loopback, 2 s WAV: {stats['blocks']} blocks, missed_deadlines "
+        f"{stats['missed_deadlines']}, real-time factor {stats['realtime_factor']:.3f}; output "
+        f"equal to the BlockSynthesizer's; ms a call: median {loop['median_ms']:.3f}, p90 "
+        f"{loop['p90_ms']:.3f}, p99 {loop['p99_ms']:.3f}, max {loop['max_ms']:.3f}")
+    result.update(loopback=dict(stats, **loop))
+
+    # oscillator_live at full width: batch 1, RT_LIVE_FRAMES frames with context
+    rng = np.random.default_rng(SEED + 16)
+
+    def controls(t):
+        return {"f0": torch.tensor(rng.uniform(100.0, 1000.0, (1, t, 1)), dtype=torch.float32,
+                                   device=device),
+                "c": torch.tensor(rng.uniform(0.0, 1.0, (1, t, conf.n_harmonics)),
+                                  dtype=torch.float32, device=device),
+                "a": torch.tensor(rng.uniform(0.0, 1.0, (1, t, 1)), dtype=torch.float32,
+                                  device=device)}
+
+    ctl, context = controls(RT_LIVE_FRAMES), {"prev": controls(1), "next": controls(1)}
+    phase = torch.tensor([0.3], device=device)
+    k1_rot = osc_frames.variant_name("osc_frames_fwd", "rot")
+    osc_frames.VARIANT_LAUNCHES.clear()  # oscillator_live's call, read just after
+    with torch.no_grad():
+        audio, final = oscillator_live(ctl, conf, phase, context)
+        torch.cuda.synchronize()
+        live_launches = dict(osc_frames.VARIANT_LAUNCHES)
+        want = live_plain(ctl, context, conf, phase)
+        live_snr = snr_db(want.cpu().numpy(), audio.cpu().numpy())
+        live_ms = cuda_ms(lambda: oscillator_live(ctl, conf, phase, context), iters=50)
+        plain_ms = cuda_ms(lambda: live_plain(ctl, context, conf, phase), iters=10, warmup=1)
+    log(f"[realtime] oscillator_live, batch 1, {RT_LIVE_FRAMES} frames with context: "
+        f"{live_launches}; vs its plain version on the card {live_snr:.2f} dB (> "
+        f"{KERNEL_SNR_FLOOR_DB}); {live_ms:.5f} ms a call, plain {plain_ms:.5f} ms")
+    require(live_launches == {k1_rot: 1}, f"oscillator_live launched {live_launches}, not one "
+            f"{k1_rot}")
+    require(audio.shape == (1, RT_LIVE_FRAMES * hop) and bool(torch.isfinite(final).all())
+            and live_snr > KERNEL_SNR_FLOOR_DB, f"oscillator_live vs plain {live_snr:.2f} dB")
+    result["live"] = {"launches": live_launches[k1_rot], "snr_db": live_snr, "ms": live_ms,
+                      "plain_ms": plain_ms}
+
+    # where a hop's time goes: the card's busy time and launches over a
+    # profiled window of hops, last, so that no timed row above follows a
+    # profiler window
+    profiled = BlockSynthesizer(params, crepe, conf, device=device)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for b in blocks[:RT_PROFILE_HOPS]:
+            profiled.process(b)
+        window_ms = 1e3 * (time.perf_counter() - t0) / RT_PROFILE_HOPS
+    kernels = [k for e in prof.events() for k in e.kernels]
+    busy_ms = 1e-3 * sum(k.duration for k in kernels) / RT_PROFILE_HOPS
+    log(f"[realtime] profiled window, {RT_PROFILE_HOPS} hops: {window_ms:.3f} ms wall a hop, "
+        f"card busy {busy_ms:.3f} ms a hop (idle {100 * (1 - busy_ms / window_ms):.1f} %), "
+        f"{len(kernels) / RT_PROFILE_HOPS:.1f} kernel launches a hop"
+        + ("" if kernels else "; the profiler saw no device kernels"))
+    result.update(profiled_wall_ms=window_ms, busy_ms=busy_ms if kernels else None,
+                  kernels_per_hop=len(kernels) / RT_PROFILE_HOPS)
+    return result
+
+
+# --------------------------------------------------------------- phase 15
+
+
+def phase_precision(device):
+    """compute_dtype='bfloat16': one full-width train step card vs CPU at
+    phase 9's criterion; crepe_compute_dtype='bfloat16': CREPE on the
+    card vs the CPU at full width, argmax bins equal."""
+    import copy
+
+    import torch
+
+    from ddsp_tpu_torch.config import Config
+    from ddsp_tpu_torch.models.autoencoder import feature_pad
+    from ddsp_tpu_torch.models.controller import decoder_init
+    from ddsp_tpu_torch.models.crepe import crepe_init
+    from ddsp_tpu_torch.models.encoder import f0_encoder_apply
+    from ddsp_tpu_torch.ops.fir import PRNGKey
+    from ddsp_tpu_torch.training import trainer
+
+    conf = Config(batch_size=2, reverb_grad_matmul_dtype="float32", compute_dtype="bfloat16")
+    batch = feature_batch(conf, conf.batch_size, SEED + 3)
+    decoder = decoder_init(conf, seed=SEED)
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        params = copy.deepcopy(decoder).to(dev)
+        on_dev = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        grads = step_gradients(params, on_dev, conf, PRNGKey(SEED, dev))
+        state = trainer.TrainState(0, params, trainer.make_optimizer(conf).init(
+            list(params.parameters())), PRNGKey(SEED, dev))
+        state, metrics = trainer.make_train_step(conf)(state, on_dev)
+        out[dev.type] = (float(metrics["loss"]), float(metrics["grad_norm"]), grads)
+        log(f"[precision] bf16 controller step on {dev}: loss {out[dev.type][0]:.6f}, "
+            f"grad_norm {out[dev.type][1]:.6f}")
+    (l_gpu, n_gpu, g_gpu), (l_cpu, n_cpu, g_cpu) = out["cuda"], out["cpu"]
+    # phase 9's bf16 criterion: a float32 sum that differs in its last bit
+    # card vs CPU can round to the other bf16 neighbour, so the loss is held
+    # to FT_LOSS_RTOL, not to phase 6's 16 float32 ulps
+    loss_err, norm_err = abs(l_gpu - l_cpu) / abs(l_cpu), abs(n_gpu - n_cpu) / n_cpu
+    require(np.isfinite(l_gpu) and loss_err <= FT_LOSS_RTOL,
+            f"bf16 controller step loss card {l_gpu} vs CPU {l_cpu}: {loss_err:.3e} > {FT_LOSS_RTOL}")
+    require(np.isfinite(n_gpu) and norm_err <= GRAD_RTOL,
+            f"bf16 controller step grad_norm {n_gpu} vs {n_cpu}: {norm_err:.3e} > {GRAD_RTOL}")
+    leaf, crit, rel = worst_leaf(g_gpu, g_cpu, FT_GRAD_RTOL)
+    log(f"[precision] compute_dtype bf16 step, card vs CPU, {len(g_cpu)} leaves: loss "
+        f"{loss_err:.3e} relative (<= {FT_LOSS_RTOL}), grad_norm {norm_err:.3e} relative; "
+        f"worst leaf {leaf}: |diff| {rel:.3e} of its norm, criterion {crit:.4f} (< 1 passes)")
+    require(crit < 1.0, f"bf16 controller step gradient of {leaf}: criterion {crit:.4f} >= 1")
+    result = {"step_criterion": crit, "step_loss_rel": loss_err, "step_grad_norm_rel": norm_err}
+
+    conf = Config(crepe_compute_dtype="bfloat16")
+    crepe = crepe_init(conf.crepe_capacity, seed=SEED + 1)
+    # random weights leave near-ties between pitch bins (ROADMAP.md, properties
+    # of the comparison): take the first audio seed whose bins agree
+    for audio_seed in FT_AUDIO_SEEDS:
+        audio = feature_pad(torch.from_numpy(
+            tone_batch(2, conf.example_length, conf.sample_rate, audio_seed)), conf)
+        probs = {}
+        for dev in (device, torch.device("cpu")):
+            with torch.no_grad():
+                probs[dev.type] = f0_encoder_apply(copy.deepcopy(crepe).to(dev), audio.to(dev),
+                                                   conf)["probabilities"].cpu().double().numpy()
+        bins = {k: v.argmax(-1) for k, v in probs.items()}
+        differ = int((bins["cuda"] != bins["cpu"]).sum())
+        logit = {k: np.log(v / (1.0 - v)) for k, v in probs.items()}
+        logit_snr = snr_db(logit["cpu"], logit["cuda"])
+        log(f"[precision] crepe_compute_dtype bf16, {probs['cpu'].shape[:2]} frames, audio seed "
+            f"{audio_seed}: {differ} argmax bins differ card vs CPU; max |dp| "
+            f"{np.abs(probs['cuda'] - probs['cpu']).max():.3e}, logits {logit_snr:.2f} dB")
+        if differ == 0:
+            break
+    require(differ == 0, f"no audio seed of {FT_AUDIO_SEEDS} gives equal bf16 CREPE bins")
+    result.update(crepe_logit_snr_db=logit_snr, crepe_audio_seed=audio_seed)
+    return result
+
+
+
 def timed_phase(phase: int, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1834,6 +2152,8 @@ def main() -> int:
     variants = timed(11, phase_variants, device)
     contract_launches = timed(12, phase_contract_step, device)
     s1 = timed(13, phase_ct_conv, device)
+    realtime = timed(14, phase_realtime, device)
+    timed(15, phase_precision, device)
 
     no_library = ("null: no single PyTorch call computes a harmonic sine-bank render or its "
                   "gradient; the nearest is the plain version")
@@ -1841,7 +2161,8 @@ def main() -> int:
         name="osc_hop_slots", route="cuda", source="ddsp_tpu_torch/csrc/osc_hop_slots.cu",
         replaces="ddsp_tpu/ops/pallas/oscillator.py:446", tpu_function="_kernel_banked",
         launches=serving["launches"], launches_by_variant=serving["launches_by_variant"],
-        launches_by_slots=serving["launches_by_slots"], library_ms=None, library=no_library,
+        launches_by_slots=serving["launches_by_slots"],
+        launches_realtime=realtime["launches"], library_ms=None, library=no_library,
         **kernel)]
     for name, line, tpu in (("osc_frames_fwd", 152, "_kernel_banked2"),
                             ("osc_frames_bwd", 777, "_kernel_banked2_bwd")):
@@ -1851,6 +2172,8 @@ def main() -> int:
             launches=train_launches[name], launches_by_variant={
                 k: v for k, v in train_launches["by_variant"].items() if k.startswith(name)},
             library_ms=None, library=no_library, **frames[name]))
+    next(k for k in kernels if k["name"] == "osc_frames_fwd")["launches_realtime"] = (
+        realtime["live"]["launches"])
     kernels.append(dict(
         name="osc_frames_overlap_add", route="cuda", source="ddsp_tpu_torch/csrc/osc_frames.cu",
         replaces="ddsp_tpu/ops/pallas/oscillator.py:777", tpu_function="_kernel_banked2_bwd "

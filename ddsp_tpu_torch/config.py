@@ -5,17 +5,27 @@ form, so a ``config.json`` written by the JAX package loads here unchanged
 (``from_dict`` rejects unknown keys).  Kept as a copy, not an import, so
 the port never loads the JAX package.
 
-Some fields only choose a TPU code path in the JAX package.  In this port:
+Each field means what it means in the JAX package.  Those that choose a
+precision or a code path do this in the port:
 
 * ``osc_impl`` chooses the oscillator's sine fill as the JAX package's
   dispatch chooses its path (``models/synths.osc_fill``): 'auto' is the
   TPU kernels' rotation fill on the card (the kernels K1, K2 and K5) and
   the exact fill of the XLA path on the CPU (their plain versions);
   'pallas' is the rotation fill on both, 'xla' the exact fill on both;
+* ``compute_dtype`` ('float32' by default: no rounding) rounds the
+  controller's three MLPs to that dtype at the rounding points of the JAX
+  package's compiled MLP (``models/nn.MLP``), in ``decoder_apply`` and
+  ``decoder_synth_only`` (training, finetuning, offline decoding), where
+  the JAX package reads it; the GRU, the dense heads and the serving and
+  real-time stream steps stay float32, as in JAX;
+* ``crepe_compute_dtype`` ('float32' by default) rounds CREPE's
+  convolution and classifier operands to that dtype with float32 sums
+  (``models/crepe.crepe_forward``), in the encoder (finetuning and the
+  dataset's feature pass) where the JAX package reads it; the streaming
+  feature step stays float32, as in JAX;
 * ``crepe_layout`` is read by nothing: the port runs the torch-shaped
   (N, C, H) convolution stack, the same math as both JAX layouts;
-* ``crepe_compute_dtype`` and ``compute_dtype`` are read by nothing: the
-  port's CREPE and controller run in full float32 (TF32 off);
 * ``loss_matmul_dtype`` ('bfloat16' by default) selects, under
   ``ops/spectral.set_stft_impl('pallas')``, the bf16 power-STFT kernels for
   the loss spectrograms, as it selects the Pallas kernels in the JAX
@@ -27,6 +37,8 @@ Some fields only choose a TPU code path in the JAX package.  In this port:
   with bf16 operands (the S1 kernel on the card); 'float32' is plain
   autograd of the float32 ``torch.fft`` convolution.  The forward is
   float32 either way.
+
+Everything else runs in float32 with TF32 off (``device.resolve_device``).
 """
 
 from __future__ import annotations
@@ -52,8 +64,8 @@ class Config:
     crepe_capacity: str = "tiny"  # 'tiny' | 'full'
     crepe_sample_rate: int = 16000
     crepe_window: int = 1024
-    # CREPE conv operand dtype in the JAX package.  Not read by the port:
-    # its CREPE runs in float32 with TF32 off.
+    # CREPE conv and classifier operand dtype (float32 sums), read by the
+    # encoder (models/encoder.f0_encoder_apply).
     crepe_compute_dtype: str = "float32"
     # CREPE conv-stack layout of the JAX package ('nlc' | 'nch'), a TPU
     # layout choice.  Not read by the port: it always runs the
@@ -102,8 +114,8 @@ class Config:
     checkpoint_async: bool = True
 
     # --- numerics / hardware ------------------------------------------------
-    # dtype of the JAX package's neural-net matmuls.  Not read by the
-    # port, which runs the controller in float32.
+    # dtype of the controller MLPs' matmuls and LayerNorms in the offline
+    # decode and training (models/controller.decoder_apply).
     compute_dtype: str = "float32"
     # dtype of the MSS-loss STFT matmul inputs.  In the port 'bfloat16'
     # routes the loss spectrograms through the bf16 power-STFT kernels when

@@ -8,6 +8,12 @@ advanced GRU state (the reference returns the stale one).
 each stage inside a ``torch.profiler.record_function`` range (controller,
 oscillator_bank, filtered_noise, reverb), the counterparts of the JAX
 package's ``named_scope``s.
+
+``Config.compute_dtype`` other than 'float32' runs the three MLPs with
+the JAX package's roundings to that dtype (``models/nn.MLP``), in
+``decoder_apply`` and ``decoder_synth_only`` only, where the JAX package
+reads it; the GRU and the dense heads stay float32, and so do the stream
+steps, which call ``controller_apply`` without it, as the JAX ones do.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from ddsp_tpu_torch.config import Config
-from ddsp_tpu_torch.models.nn import GRU, MLP
+from ddsp_tpu_torch.models.nn import GRU, MLP, compute_dtype_of
 from ddsp_tpu_torch.models.synths import (
     Reverb,
     noise_apply,
@@ -51,13 +57,15 @@ class Controller(nn.Module):
         self,
         batch: Dict[str, torch.Tensor],
         hidden: Optional[torch.Tensor] = None,
+        compute_dtype: Optional[torch.dtype] = None,
     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        latent_f0 = self.mlp_f0(batch["normalized_cents"])
-        latent_loud = self.mlp_loudness(batch["loudness"])
+        latent_f0 = self.mlp_f0(batch["normalized_cents"], compute_dtype)
+        latent_loud = self.mlp_loudness(batch["loudness"], compute_dtype)
         latent, new_hidden = self.gru(
             torch.cat([latent_f0, latent_loud], dim=-1), hidden
         )
-        latent = self.mlp_gru(torch.cat([latent, latent_f0, latent_loud], -1))
+        latent = self.mlp_gru(torch.cat([latent, latent_f0, latent_loud], -1),
+                              compute_dtype)
         controls = {
             "f0": batch["f0"],
             "c": modified_sigmoid(self.dense_harmonic(latent)),
@@ -96,17 +104,19 @@ def controller_apply(
     controller: Controller,
     batch: Dict[str, torch.Tensor],
     hidden: Optional[torch.Tensor] = None,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Map features to synthesis controls.
 
     Args:
       batch: {'normalized_cents', 'loudness', 'f0'}, each (B, T, 1).
       hidden: optional (layers, B, H) GRU state.
+      compute_dtype: the MLPs' low-precision dtype, or None for float32.
 
     Returns:
       (controls {f0, c, a, H}, advanced hidden state).
     """
-    return controller(batch, hidden)
+    return controller(batch, hidden, compute_dtype)
 
 
 def decoder_apply(
@@ -123,7 +133,8 @@ def decoder_apply(
     is a (2,) threefry key.  Returns (B, T*hop) audio.
     """
     with record_function("controller"):
-        controls, _ = controller_apply(params.controller, batch)
+        controls, _ = controller_apply(params.controller, batch,
+                                       compute_dtype=compute_dtype_of(conf.compute_dtype))
     with record_function("oscillator_bank"):
         harm, _ = oscillator_apply(controls, conf, frame_chunk=frame_chunk)
     with record_function("filtered_noise"):
@@ -139,7 +150,8 @@ def decoder_synth_only(
     noise_key: torch.Tensor,
 ) -> Dict[str, torch.Tensor]:
     """Decode returning the pre- and post-reverb signals and the controls."""
-    controls, _ = controller_apply(params.controller, batch)
+    controls, _ = controller_apply(params.controller, batch,
+                                   compute_dtype=compute_dtype_of(conf.compute_dtype))
     harm, _ = oscillator_apply(controls, conf)
     noise = noise_apply(controls, conf, noise_key)
     dry = harm + noise

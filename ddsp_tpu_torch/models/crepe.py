@@ -8,6 +8,12 @@ torch-shaped (N, C, H) layout; the JAX package's channels-last form is a
 TPU layout choice with the same math.  Also the three pitch decodes
 (argmax, and the differentiable local averages that finetuning needs) and
 ``make_statistics_trainable`` for the finetune state.
+
+``compute_dtype`` (``Config.crepe_compute_dtype``, read by the encoder)
+rounds the convolutions' and the classifier's operands to that dtype and
+sums in float32, as the JAX package's ``preferred_element_type=float32``
+products do (``ddsp_tpu/models/crepe.py:107-117, 257-258``); bias,
+ReLU, BatchNorm, pooling and the sigmoid stay float32.
 """
 
 from __future__ import annotations
@@ -79,26 +85,35 @@ def load_torch_checkpoint(path: str, capacity: str = "tiny") -> Crepe:
     return model.eval()
 
 
+def _operands(dtype, *ts):
+    """``ts`` rounded to ``dtype`` and back to float32 (None: as they are)."""
+    return ts if dtype is None else tuple(t.to(dtype).float() for t in ts)
+
+
 def _layer(x: torch.Tensor, conv: nn.Conv1d, bn: nn.BatchNorm1d,
-           stride: int, pad) -> torch.Tensor:
+           stride: int, pad, compute_dtype=None) -> torch.Tensor:
     """pad -> conv1d -> relu -> inference BN -> maxpool(2, stride 2)."""
-    x = F.conv1d(F.pad(x, pad), conv.weight, stride=stride)
+    x, w = _operands(compute_dtype, F.pad(x, pad), conv.weight)
+    x = F.conv1d(x, w, stride=stride)
     x = torch.relu(x + conv.bias[:, None])
     scale = bn.weight * torch.rsqrt(bn.running_var + BN_EPS)
     x = (x - bn.running_mean[:, None]) * scale[:, None] + bn.bias[:, None]
     return F.max_pool1d(x, 2, 2)
 
 
-def crepe_forward(crepe: Crepe, frames: torch.Tensor) -> torch.Tensor:
+def crepe_forward(crepe: Crepe, frames: torch.Tensor,
+                  compute_dtype: torch.dtype = None) -> torch.Tensor:
     """(B, 1024) windows -> (B, 360) sigmoid pitch-bin probabilities,
-    with the reference's h-major flatten of the final (B, C, H) map."""
+    with the reference's h-major flatten of the final (B, C, H) map.
+    ``compute_dtype``: the operand dtype of the module docstring."""
     x = frames[:, None, :]
     for i in range(6):
         x = _layer(x, getattr(crepe, f"conv{i + 1}"),
-                   getattr(crepe, f"conv{i + 1}_BN"), STRIDES[i], PADS[i])
+                   getattr(crepe, f"conv{i + 1}_BN"), STRIDES[i], PADS[i], compute_dtype)
     b, c, h = x.shape
-    x = x.transpose(1, 2).reshape(b, h * c)
-    return torch.sigmoid(crepe.classifier(x))
+    x, w = _operands(compute_dtype, x.transpose(1, 2).reshape(b, h * c),
+                     crepe.classifier.weight)
+    return torch.sigmoid(F.linear(x, w, crepe.classifier.bias))
 
 
 def cents_map(bins: torch.Tensor) -> torch.Tensor:

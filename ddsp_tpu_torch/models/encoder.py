@@ -7,8 +7,9 @@ model/autoencoder/encoder.py:13-177):
   std, as torch), the aligned CREPE hop ``int(hop * (resampled_len -
   1024) / (orig_len - n_fft))`` so that CREPE frames equal STFT frames
   (the 172-frame contract), frozen CREPE over unfolded 1024-sample
-  windows, pitch decode by ``conf.pitch_decode`` ('argmax', 'weighted'
-  or 'centered_ref');
+  windows (operands rounded to ``conf.crepe_compute_dtype`` when it is
+  not 'float32', as in the JAX package), pitch decode by
+  ``conf.pitch_decode`` ('argmax', 'weighted' or 'centered_ref');
 * loudness: rectangular-window STFT dB + A-weighting, -90 dB floor
   mapping, mean over bins.
 
@@ -25,6 +26,7 @@ from typing import Dict
 import torch
 
 from ddsp_tpu_torch.config import Config
+from ddsp_tpu_torch.models.nn import compute_dtype_of
 from ddsp_tpu_torch.models.crepe import (
     Crepe,
     crepe_forward,
@@ -101,7 +103,10 @@ def f0_encoder_apply(
         hop = crepe_frame_hop(orig_len, x.shape[-1], conf)
         frames = frame_signal(x, conf.crepe_window, hop)  # (B, T, 1024)
         b, t, w = frames.shape
-        probs = crepe_forward(crepe, frames.reshape(b * t, w)).reshape(b, t, -1)
+        probs = crepe_forward(
+            crepe, frames.reshape(b * t, w),
+            compute_dtype=compute_dtype_of(conf.crepe_compute_dtype),
+        ).reshape(b, t, -1)
         freq, harmonicity, normalized_cents = decode(probs)
     return {
         "f0": freq,

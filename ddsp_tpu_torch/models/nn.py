@@ -6,6 +6,19 @@ an MLP's layer ``i`` is ``mlp_layer{i}.0`` (Linear) and ``mlp_layer{i}.1``
 (LayerNorm); the GRU keeps ``torch.nn.GRU``'s ``weight_ih_l{k}``,
 ``weight_hh_l{k}``, ``bias_ih_l{k}`` and ``bias_hh_l{k}`` with gates
 ordered (reset, update, new).
+
+``MLP.forward(x, compute_dtype)`` with a low-precision dtype rounds as the
+JAX package's ``mlp_apply(dtype=...)`` does once XLA has compiled it
+(``ddsp_tpu/models/nn.py:40-56``, under ``jax.jit`` as its train step and
+decoders run): x, the weight, the bias and the product, and the dense
+sum; the LayerNorm's statistics are float32 sums of the sum before its
+rounding, rounded; the variance plus the rounded epsilon, and its rsqrt,
+are rounded; the centred value is rounded, and its product with the
+rsqrt stays float32 into the float32 weight multiply (XLA drops the
+round trips it may, ``xla_allow_excess_precision``).  Op by op, without
+``jit``, JAX rounds after every bf16 operation instead, which moves the
+controls by as much as bf16 against float32 does.  ``count_params`` counts a
+module's state as the JAX package's pytree holds it.
 """
 
 from __future__ import annotations
@@ -15,6 +28,12 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+
+def compute_dtype_of(name: str) -> Optional[torch.dtype]:
+    """A config's dtype name -> the torch dtype to round to, or None for
+    'float32' (no rounding), as the JAX package maps it."""
+    return None if name == "float32" else getattr(torch, name)
 
 
 class MLP(nn.Module):
@@ -33,10 +52,36 @@ class MLP(nn.Module):
                 ),
             )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None
+                ) -> torch.Tensor:
         for layer in self.children():
-            x = layer(x)
+            x = layer(x) if compute_dtype is None else _layer_lowp(layer, x, compute_dtype)
         return x
+
+
+def _layer_lowp(layer: nn.Sequential, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One MLP layer with the roundings to ``dtype`` of the JAX package's
+    compiled ``mlp_apply``: each value is computed in float32 and rounded
+    where XLA's compiled form rounds it."""
+    linear, norm, act = layer
+
+    def r(t):
+        return t.to(dtype).float()
+
+    pre = r(r(x) @ r(linear.weight).T) + r(linear.bias)  # the sum, before its rounding
+    mean = pre.mean(dim=-1, keepdim=True)
+    var = r(((pre - mean) ** 2).mean(dim=-1, keepdim=True))
+    eps = torch.tensor(norm.eps, dtype=dtype).item()  # JAX adds eps in the low dtype
+    inv = r(torch.rsqrt(r(var + eps)))
+    return act(r(r(pre) - r(mean)) * inv * norm.weight + norm.bias)
+
+
+def count_params(module: nn.Module) -> int:
+    """Elements of the state the JAX package keeps in its parameter pytree
+    (its ``count_params``): every parameter and every floating-point buffer
+    (CREPE's BatchNorm statistics), not ``num_batches_tracked``."""
+    return sum(t.numel() for t in (*module.parameters(), *module.buffers())
+               if t.is_floating_point())
 
 
 def gru_cell(

@@ -8,6 +8,8 @@ model/ddsp/harmonic_oscillator.py, filtered_noise.py, reverb.py):
   by device to the CUDA kernel pair or its plain version
   (ops/oscillator.py), with the sine fill that :func:`osc_fill` resolves
   from ``conf.osc_impl``;
+* ``oscillator_live`` renders a block of frames carrying the fundamental
+  phase across blocks, on the same renderer (K1 on the card);
 * the streaming reverb splits the IR into P block-sized partitions whose
   2*block rDFT spectra multiply the stored spectra of the last P dry
   windows (overlap-save); the P-deep line carries the IR's whole memory,
@@ -25,7 +27,8 @@ from torch import nn
 from ddsp_tpu_torch.config import Config
 from ddsp_tpu_torch.ops.fft import irfft_pair, rfft_pair
 from ddsp_tpu_torch.ops.fir import fft_convolve, filtered_noise
-from ddsp_tpu_torch.ops.oscillator import oscillator_bank
+from ddsp_tpu_torch.ops.interp import edge_pad_frames
+from ddsp_tpu_torch.ops.oscillator import oscillator_bank, render_padded
 
 
 OSC_IMPLS = ("auto", "xla", "pallas")
@@ -69,6 +72,35 @@ def oscillator_apply(
         initial_phase=initial_phase,
         frame_chunk=frame_chunk,
         fill=fill,
+    )
+
+
+def oscillator_live(
+    controls: dict,
+    conf: Config,
+    phase: torch.Tensor,
+    context: Optional[dict] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Streaming harmonic render of a block of frames {f0, c, a}, carrying
+    the fundamental phase (B,) in cycles across blocks.
+
+    ``context`` optionally holds {f0, c, a} of the frame before and after
+    the block (keys 'prev', 'next'), for exact interpolation across block
+    edges; without it the edges are clamped (the reference's live path,
+    harmonic_oscillator.py:64-75).  Returns (audio (B, T*hop), final
+    phase (B,)); the frame forward kernel K1 renders it on the card.
+    """
+    if context is None:
+        padded = [edge_pad_frames(controls[k]) for k in ("f0", "c", "a")]
+    else:
+        padded = [torch.cat([context["prev"][k], controls[k], context["next"][k]], dim=1)
+                  for k in ("f0", "c", "a")]
+    return render_padded(
+        *padded,
+        sample_rate=conf.sample_rate,
+        hop=conf.hop_length,
+        initial_phase=phase,
+        fill=osc_fill(conf.osc_impl, phase.device),
     )
 
 

@@ -7,7 +7,7 @@ with fixed weights that depend only on ``j``; the oscillator uses those
 weights directly and never builds audio-rate control tensors.
 
 Counterpart of ``ddsp_tpu/ops/interp.py`` (weights in numpy, cached;
-``edge_pad_frames`` on tensors).
+``edge_pad_frames`` and ``upsample_linear`` on tensors).
 """
 
 from __future__ import annotations
@@ -64,3 +64,18 @@ def edge_pad_frames(x: torch.Tensor) -> torch.Tensor:
     """Replicate one frame of context on each side of the time axis
     (axis 1): the interpolation edge clamp of offline renders."""
     return torch.cat([x[:, :1], x, x[:, -1:]], dim=1)
+
+
+def upsample_linear(x: torch.Tensor, hop: int) -> torch.Tensor:
+    """(B, T, C) frame-rate signal -> (B, T*hop, C) audio rate, by the
+    reference's ``F.interpolate(x.permute(0, 2, 1), scale_factor=hop,
+    mode='linear')`` (model/ddsp/harmonic_oscillator.py:52-55), as the JAX
+    package computes it: three shifted frame views mixed by
+    :func:`hop_weights`."""
+    b, t, c = x.shape
+    xp = edge_pad_frames(x)
+    w = hop_weights_on(hop, x.device)  # (hop, 3)
+    out = (xp[:, :-2, None, :] * w[None, None, :, 0, None]
+           + xp[:, 1:-1, None, :] * w[None, None, :, 1, None]
+           + xp[:, 2:, None, :] * w[None, None, :, 2, None])
+    return out.reshape(b, t * hop, c)

@@ -80,6 +80,20 @@ def _slot_row_keys(key: torch.Tensor, n: int) -> torch.Tensor:
     return fold_in(fold_in(key, torch.arange(n, device=key.device)), 0)
 
 
+def _lone_row_keys(key: torch.Tensor, n: int) -> torch.Tensor:
+    """(1, 2): the key ``frame_noise`` gives row 0 of a lone batch-1
+    stream keyed ``key`` itself."""
+    if n != 1:
+        raise ValueError(f"a lone-stream step has one slot, got {n}")
+    return fold_in(key[None], 0)
+
+
+def _row_keys(noise_key: torch.Tensor, lone: bool):
+    """slot count -> the slots' noise keys, made once per slot count."""
+    keys = _lone_row_keys if lone else _slot_row_keys
+    return functools.lru_cache(maxsize=None)(functools.partial(keys, noise_key))
+
+
 def _slot_noise(
     row_keys: torch.Tensor, offsets: torch.Tensor, block_size: int, dtype
 ) -> torch.Tensor:
@@ -151,6 +165,7 @@ def make_multistream_step(
     conf: Config,
     noise_key: torch.Tensor,
     masked: bool = False,
+    lone: bool = False,
 ):
     """(state, blocks (N, hop)) -> (out_blocks (N, hop), state).
 
@@ -162,11 +177,12 @@ def make_multistream_step(
     ``active`` is an (N,) bool tensor: every slot is computed but only
     active rows commit to the returned state, so inactive slots are frozen
     exactly (their output rows are garbage and must be ignored).
+
+    With ``lone=True`` the step has one slot, equal to the lone stream
+    keyed ``noise_key`` itself (``BlockSynthesizer``).
     """
     feat_step = make_feature_stream_step(crepe, conf)
-    slot_keys = functools.lru_cache(maxsize=None)(  # once per slot count
-        functools.partial(_slot_row_keys, noise_key)
-    )
+    slot_keys = _row_keys(noise_key, lone)
     with torch.no_grad():
         ir_spec = reverb_ir_spectra(params.reverb, conf, conf.hop_length)
 
@@ -213,12 +229,12 @@ def make_multistream_step(
     return step_masked
 
 
-def make_multistream_flush(params: Decoder, conf: Config, noise_key: torch.Tensor):
+def make_multistream_flush(params: Decoder, conf: Config, noise_key: torch.Tensor,
+                           lone: bool = False):
     """state -> (tail_blocks (N, hop), state): render every slot's final
-    buffered frame with a right-edge clamp (single-stream flush)."""
-    slot_keys = functools.lru_cache(maxsize=None)(  # once per slot count
-        functools.partial(_slot_row_keys, noise_key)
-    )
+    buffered frame with a right-edge clamp (single-stream flush); ``lone``
+    as in ``make_multistream_step``."""
+    slot_keys = _row_keys(noise_key, lone)
     with torch.no_grad():
         ir_spec = reverb_ir_spectra(params.reverb, conf, conf.hop_length)
 

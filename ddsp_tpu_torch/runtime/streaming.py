@@ -11,17 +11,25 @@ tensors threaded through the step functions:
   memory, so a stream equals an offline render.
 
 The single stream is the oracle that every slot of the multi-stream step
-(``runtime/multistream.py``) is held against.
+(``runtime/multistream.py``) is held against.  ``BlockSynthesizer`` is
+the single client's real-time path: one hop of mic samples in, one hop of
+synthesis out, with missed deadlines counted.  It runs the multi-stream
+step at one slot keyed as the lone stream, which equals the two steps
+here bit for bit with fewer launches a hop (469 against 648 at full
+width on an H100, ``utils/profile_realtime.py``); on the card each hop
+launches the slot kernel K5 once, at N = 1.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
 
 from ddsp_tpu_torch.config import Config
+from ddsp_tpu_torch.device import resolve_device
 from ddsp_tpu_torch.models.controller import Decoder, controller_apply
 from ddsp_tpu_torch.models.crepe import Crepe, crepe_forward, pitch_argmax
 from ddsp_tpu_torch.models.synths import (
@@ -31,7 +39,7 @@ from ddsp_tpu_torch.models.synths import (
     reverb_live,
     reverb_live_init,
 )
-from ddsp_tpu_torch.ops.fir import filtered_noise
+from ddsp_tpu_torch.ops.fir import PRNGKey, filtered_noise
 from ddsp_tpu_torch.ops.oscillator import render_hop_rows
 from ddsp_tpu_torch.ops.resample import resample
 from ddsp_tpu_torch.ops.spectral import a_weighted_loudness
@@ -188,3 +196,68 @@ def make_feature_stream_step(crepe: Crepe, conf: Config):
         return frame, FeatureStreamState(buffer=buf)
 
     return step
+
+
+# --- host-side block synthesizer --------------------------------------------
+class BlockSynthesizer:
+    """Mic block in -> synthesized block out, with deadline tracking.
+
+    One client's stream: the counterpart of the reference's JACK process
+    callback (rt/synth.py:40-56) without the JACK dependency
+    (``runtime/jack_io.py``).  Its output is that of the feature and synth
+    stream steps above keyed ``PRNGKey(noise_seed)``; the multi-stream step
+    at one slot (``lone=True``) computes it with fewer launches.  ``params``
+    and ``crepe`` (``Decoder`` and ``Crepe`` modules) are moved to
+    ``device`` in place.
+    """
+
+    def __init__(
+        self,
+        params: Decoder,
+        crepe: Crepe,
+        conf: Config,
+        noise_seed: int = 0,
+        device="cuda",
+    ):
+        from ddsp_tpu_torch.runtime import multistream  # which imports this module
+
+        self.device = resolve_device(device)
+        self.conf = conf
+        self.hop = conf.hop_length
+        params = params.to(self.device).eval()
+        crepe = crepe.to(self.device).eval()
+        key = PRNGKey(noise_seed, self.device)
+        self._step = multistream.make_multistream_step(params, crepe, conf, key, lone=True)
+        self._flush = multistream.make_multistream_flush(params, conf, key, lone=True)
+        self._state = multistream.multistream_init(conf, 1, self.device)
+        self.missed_deadlines = 0
+        self.blocks = 0
+        # build the kernel and pick library algorithms before the first
+        # deadline-bound callback; the state this produces is discarded
+        self._step(self._state, torch.zeros((1, self.hop), device=self.device))[0].cpu()
+
+    def process(self, block: np.ndarray) -> np.ndarray:
+        """One hop of input samples -> one hop of output samples.  The
+        deadline covers the host copies too: the steps only queue work on
+        the card, and the copy back waits for it."""
+        if block.shape[-1] != self.hop:
+            raise ValueError(f"block has {block.shape[-1]} samples, the hop is {self.hop}")
+        t0 = time.perf_counter()
+        x = torch.tensor(np.asarray(block, np.float32).reshape(1, -1), device=self.device)
+        out, self._state = self._step(self._state, x)
+        out = out[0].cpu().numpy()
+        self.blocks += 1
+        if time.perf_counter() - t0 >= self.hop / self.conf.sample_rate:
+            self.missed_deadlines += 1
+        return out
+
+    def flush(self) -> np.ndarray:
+        """Render the final buffered frame (right-edge clamp, offline parity).
+
+        The step runs one frame behind its input (frame t renders once
+        frame t+1 is known), so at stream end the last consumed frame is
+        still pending; call this once after the final ``process`` to emit
+        that tail hop (the reference's RT loop drops it, rt/synth.py:44-56).
+        """
+        out, self._state = self._flush(self._state)
+        return out[0].cpu().numpy()

@@ -53,10 +53,12 @@ def tone_blocks(n_streams: int, n_hops: int, hop: int, sample_rate: int, seed: i
     return x.astype(np.float32).reshape(n_streams, n_hops, hop).transpose(1, 0, 2).copy()
 
 
-def lone_stream(params, crepe, conf, key, blocks, device, batch: int = 1):
+def lone_stream(params, crepe, conf, key, blocks, device, batch: int = 1,
+                flush: bool = False):
     """Single-stream oracle over one slot's (n_hops, hop) blocks, run on
-    ``batch`` copies of the stream: row 0's audio (n_hops, hop) and the
-    CREPE pitch bin of every frame."""
+    ``batch`` copies of the stream: row 0's audio (n_hops, hop), with the
+    flush step's tail hop as one more row if ``flush``, and the CREPE
+    pitch bin of every frame."""
     from ddsp_tpu_torch.runtime import streaming
 
     feat_step = streaming.make_feature_stream_step(crepe, conf)
@@ -70,6 +72,8 @@ def lone_stream(params, crepe, conf, key, blocks, device, batch: int = 1):
         out, ss = synth_step(ss, frame)
         outs.append(out[0].cpu().numpy())
         bins.append(round(float(frame["normalized_cents"][0, 0, 0]) * 359))
+    if flush:
+        outs.append(streaming.make_synth_stream_flush(params, conf, key)(ss)[0][0].cpu().numpy())
     return np.stack(outs), np.array(bins)
 
 

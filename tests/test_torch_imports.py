@@ -24,7 +24,11 @@ from ddsp_tpu_torch.models.crepe import crepe_init
 from ddsp_tpu_torch.data import dataset
 from ddsp_tpu_torch.ops.fir import PRNGKey
 from ddsp_tpu_torch.runtime import server
+from ddsp_tpu_torch.data.audio_io import write_wav
+from ddsp_tpu_torch.runtime.jack_io import run_file_loopback
 from ddsp_tpu_torch.runtime.multistream import MultiStreamServer
+from ddsp_tpu_torch.runtime.streaming import BlockSynthesizer
+from ddsp_tpu_torch.runtime.threaded import ThreadedSynthesizer
 from ddsp_tpu_torch.training import train, trainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,6 +52,12 @@ VARIANT_MODULES = (
 CT_CONV_MODULES = (
     "ddsp_tpu_torch.ops.cuda.ct_conv", "ddsp_tpu_torch.utils.ct_conv_ab",
     "ddsp_tpu_torch.utils.profile_reverb_grad",
+)
+# the single-stream real-time path's modules
+REALTIME_MODULES = (
+    "ddsp_tpu_torch.native", "ddsp_tpu_torch.runtime.threaded",
+    "ddsp_tpu_torch.runtime.jack_io", "ddsp_tpu_torch.runtime.streaming",
+    "ddsp_tpu_torch.ops", "ddsp_tpu_torch.models",
 )
 
 
@@ -84,7 +94,33 @@ def test_every_module_imports_without_jax():
     assert set(TRAINING_MODULES) <= set(names)
     assert set(VARIANT_MODULES) <= set(names)
     assert set(CT_CONV_MODULES) <= set(names)
+    assert set(REALTIME_MODULES) <= set(names)
     assert loaded == "", f"port imports pulled in {loaded}"
+
+
+def test_realtime_imports_build_nothing():
+    """Importing the real-time modules and the package exports runs no
+    compiler and loads no library: the ring and the kernels build at first
+    use."""
+    code = textwrap.dedent(
+        """
+        import subprocess
+        def refuse(*a, **k):
+            raise AssertionError(f"a build ran at import: {a}")
+        subprocess.run = subprocess.Popen = refuse
+        import ddsp_tpu_torch.native as native
+        import ddsp_tpu_torch.runtime.threaded, ddsp_tpu_torch.runtime.jack_io
+        from ddsp_tpu_torch.models import oscillator_live
+        from ddsp_tpu_torch.ops import upsample_linear
+        from ddsp_tpu_torch.ops.cuda import build
+        assert native._lib is None and not build._libs
+        print("ok")
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
 def test_chip_smoke_imports_no_jax():
@@ -133,7 +169,7 @@ def _features(conf, n=4):
 
 
 @pytest.mark.parametrize("entry", [
-    "multistream", "stream_server", "cli",
+    "multistream", "stream_server", "cli", "block_synth", "threaded", "loopback",
     "fit", "init_state", "extract_features", "train_cli",
     "finetune", "init_finetune_state", "finetune_cli",
 ])
@@ -142,6 +178,14 @@ def test_entry_points_raise_without_cuda(no_cuda, entry, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if entry == "multistream":
             MultiStreamServer(params, crepe, CONF, n_streams=2)
+        elif entry == "block_synth":
+            BlockSynthesizer(params, crepe, CONF)
+        elif entry == "threaded":
+            ThreadedSynthesizer(params, crepe, CONF)
+        elif entry == "loopback":
+            write_wav(str(tmp_path / "in.wav"), np.zeros(4 * CONF.hop_length), CONF.sample_rate)
+            run_file_loopback(params, crepe, CONF, str(tmp_path / "in.wav"),
+                              str(tmp_path / "out.wav"))
         elif entry == "stream_server":
             server.StreamServer(params, crepe, CONF, str(tmp_path / "s.sock"))
         elif entry == "cli":

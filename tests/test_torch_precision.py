@@ -1,0 +1,279 @@
+"""The precision options ``compute_dtype`` and ``crepe_compute_dtype`` in the
+port, against the JAX package at 'bfloat16', and the float32 defaults
+bit-equal to the port before they were honoured; also the small public
+names ``ops.interp.upsample_linear`` and ``models.nn.count_params``.
+
+Tolerances (CPU; each set a few times the gap measured on its inputs):
+
+* controller at ``compute_dtype='bfloat16'``, against the JAX package's
+  compiled (``jax.jit``) controller, whose roundings the port follows
+  (``models/nn.py``): controls within 3e-6 relative (measured 5.1e-7;
+  bf16 against float32 moves them by 4.1e-3-5.7e-3, which the test also
+  requires, so the option engages); ``decoder_apply`` audio SNR >= 80 dB
+  (measured 87.4 dB, as at float32 on these inputs, where the harmonic
+  render alone agrees to 79.0 dB; bf16 against float32 is 46.7 dB).
+* one train step's loss and gradients at ``compute_dtype='bfloat16'``
+  (``trainer.loss_fn`` under autograd against the jitted
+  ``jax.value_and_grad``), each held beside a float32 control (the
+  port's gradient at ``compute_dtype='float32'``, against the same JAX
+  bf16 gradient): loss within 1e-5 relative (measured 1.2e-6; the
+  control 3.5e-4); the whole gradient within 6e-3 of its norm (measured
+  3.6e-3; the control 1.01e-2, which the test requires above the limit);
+  every leaf nearer JAX's than the control (measured at most 0.80 of the
+  control's distance, ``mlp_gru``'s second bias) and within 3e-2 of its
+  norm (measured 1.5e-2 at worst, ``mlp_loudness``'s first bias).  The
+  backward does not match JAX's leaf by leaf: the MLP and GRU leaves
+  stay 2e-3-1.5e-2 from it, 0.2-0.8 of the control's distance, while the
+  dense heads and the reverb come within 1e-5-1.6e-3 (0.01-0.04 of it).
+  JAX's compiled backward rounds its bf16 cotangents where XLA's fusions
+  do; the port rounds where the forward casts (an open fault, ROADMAP.md
+  §3).  So these checks tell a bf16 step from a float32 one, not the
+  backward's roundings: casts that pass the cotangent through unrounded
+  land as near (whole 3.4e-3, worst leaf 1.56e-2, 0.82 of the control).
+  ``make_train_step``'s loss and grad_norm (the trainer reads the field)
+  within 1e-5 and 3e-4 relative (measured 1.2e-6 and 7.2e-5; the control
+  4.3e-3 for grad_norm).
+* CREPE at ``crepe_compute_dtype='bfloat16'`` through
+  ``f0_encoder_apply`` and ``crepe_forward``: argmax bins equal, and the
+  logits of the probabilities >= 74 dB SNR from JAX's (measured 82.0 and
+  81.1 dB).  The float32 sums differ in their last bits between the
+  libraries, which flips a bf16 operand rounding now and then, and random
+  weights leave every probability near 0.5; bf16 against float32 is 69.8
+  dB, under the floor, so the test tells the two apart and requires it.
+"""
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from ddsp_tpu_torch.config import Config
+from ddsp_tpu_torch.models import crepe as port_crepe
+from ddsp_tpu_torch.models.controller import controller_apply, decoder_apply
+from ddsp_tpu_torch.models.convert import crepe_from_jax, decoder_from_jax, decoder_to_jax
+from ddsp_tpu_torch.models.encoder import f0_encoder_apply
+from ddsp_tpu_torch.models.nn import count_params
+from ddsp_tpu_torch.ops.fir import PRNGKey, split
+from ddsp_tpu_torch.ops.interp import upsample_linear
+from ddsp_tpu_torch.training import trainer
+
+import jax
+import jax.numpy as jnp
+
+from ddsp_tpu.config import Config as JaxConfig
+
+TINY = dict(
+    sample_rate=4000, n_fft=256, hop_length=64, example_duration=0.5,
+    n_harmonics=16, n_noise_filters=17, decoder_mlp_units=32,
+    decoder_mlp_layers=2, decoder_gru_units=32, batch_size=3,
+    mss_ffts=(256, 128, 64), reverb_length=1024,
+    loss_matmul_dtype="float32", reverb_grad_matmul_dtype="float32",
+)
+
+
+def _snr(want, got) -> float:
+    want = np.asarray(want, np.float64)
+    noise = np.mean((want - np.asarray(got, np.float64)) ** 2)
+    return float("inf") if noise == 0 else float(10 * np.log10(np.mean(want**2) / noise))
+
+
+def _batch(conf, n, seed=1):
+    rng = np.random.default_rng(seed)
+    t = conf.frames_per_example
+    return {
+        "f0": rng.uniform(100, 400, (n, t, 1)).astype(np.float32),
+        "normalized_cents": rng.uniform(0, 1, (n, t, 1)).astype(np.float32),
+        "loudness": rng.uniform(0, 1, (n, t, 1)).astype(np.float32),
+        "audio": (0.1 * rng.standard_normal((n, conf.example_length))).astype(np.float32),
+    }
+
+
+@pytest.fixture(scope="module")
+def decoders():
+    from ddsp_tpu.models import controller as jax_controller
+
+    conf = Config(**TINY, compute_dtype="bfloat16")
+    params = jax_controller.decoder_init(jax.random.PRNGKey(3), JaxConfig(**TINY))
+    return params, decoder_from_jax(jax.tree_util.tree_map(np.asarray, params), conf)
+
+
+def test_controller_bf16_matches_jax(decoders):
+    from ddsp_tpu.models import controller as jax_controller
+
+    params, decoder = decoders
+    conf = Config(**TINY, compute_dtype="bfloat16")
+    jconf = JaxConfig(**TINY, compute_dtype="bfloat16", osc_impl="xla")
+    batch = _batch(conf, 3)
+    del batch["audio"]
+    tensors = {k: torch.from_numpy(v) for k, v in batch.items()}
+    want, _ = jax.jit(lambda p, b: jax_controller.controller_apply(
+        p, b, compute_dtype=jnp.bfloat16))(params["controller"], batch)
+    f32, _ = jax_controller.controller_apply(params["controller"], batch)
+    with torch.no_grad():
+        got, _ = controller_apply(decoder.controller, tensors, compute_dtype=torch.bfloat16)
+    for k in ("c", "a", "H"):
+        w = np.asarray(want[k])
+        assert np.abs(np.asarray(f32[k]) - w).max() > 1e-3, k  # bf16 is not float32
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=3e-6, atol=0, err_msg=k)
+    audio = np.asarray(jax.jit(jax_controller.decoder_apply, static_argnums=2)(
+        params, batch, jconf, jax.random.PRNGKey(5)))
+    with torch.no_grad():
+        got_audio = decoder_apply(decoder, tensors, conf, PRNGKey(5)).numpy()
+    assert _snr(audio, got_audio) >= 80.0, _snr(audio, got_audio)
+
+
+def test_bf16_train_step_loss_and_gradients_match_jax(decoders):
+    """The loss and gradients of the step's loss function, then the port's
+    train step from the same key: the trainer reads the field."""
+    from ddsp_tpu.training import trainer as jax_trainer
+
+    params, decoder = decoders
+    conf = Config(**TINY, compute_dtype="bfloat16")
+    jconf = JaxConfig(**TINY, compute_dtype="bfloat16", osc_impl="xla")
+    batch = _batch(conf, conf.batch_size)
+    jkey = jax.random.split(jax.random.PRNGKey(7))[1]  # the step's noise key
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(jax_trainer.loss_fn, has_aux=True),
+                                 static_argnums=2)(params, batch, jconf, jkey)
+    jloss = float(jloss)
+    jnorm = float(np.sqrt(sum(np.sum(np.asarray(g, np.float64) ** 2)
+                              for g in jax.tree_util.tree_leaves(jgrads))))
+    tensors = {k: torch.from_numpy(v) for k, v in batch.items()}
+    want = [np.asarray(w, np.float64) for w in jax.tree_util.tree_leaves(jgrads)]
+
+    def distances(step_conf):
+        """The loss, each leaf's distance from JAX's bf16 gradient over its
+        norm, and the whole gradient's over the whole norm."""
+        model = copy.deepcopy(decoder)
+        loss, _ = trainer.loss_fn(model, tensors, step_conf, split(PRNGKey(7))[1])
+        loss.backward()
+        grads = copy.deepcopy(model)
+        for g, p in zip(grads.parameters(), model.parameters()):
+            g.data = p.grad
+        got = jax.tree_util.tree_leaves(decoder_to_jax(grads))
+        rel = np.array([np.linalg.norm(w - g) / np.linalg.norm(w) for w, g in zip(want, got)])
+        whole = np.sqrt(sum(np.sum((w - g) ** 2) for w, g in zip(want, got))) / jnorm
+        return loss.item(), rel, whole
+
+    loss, rel, whole = distances(conf)
+    _, control_rel, control_whole = distances(Config(**TINY))
+    assert abs(loss - jloss) <= 1e-5 * abs(jloss), (loss, jloss)
+    assert whole <= 6e-3 < control_whole, (whole, control_whole)
+    assert (rel < control_rel).all(), rel / control_rel
+    assert rel.max() <= 3e-2, rel
+
+    decoder = copy.deepcopy(decoder)
+    state = trainer.TrainState(0, decoder, trainer.make_optimizer(conf).init(
+        list(decoder.parameters())), PRNGKey(7))
+    _, m = trainer.make_train_step(conf)(state, tensors)
+    assert abs(float(m["loss"]) - jloss) <= 1e-5 * abs(jloss), (float(m["loss"]), jloss)
+    assert abs(float(m["grad_norm"]) - jnorm) <= 3e-4 * jnorm, (float(m["grad_norm"]), jnorm)
+
+
+@pytest.fixture(scope="module")
+def crepes():
+    from ddsp_tpu.models.crepe import crepe_init as jax_crepe_init
+
+    params = jax_crepe_init(jax.random.PRNGKey(3), "tiny")
+    return params, crepe_from_jax(jax.tree_util.tree_map(np.asarray, params))
+
+
+def _logits(p):
+    p = np.asarray(p, np.float64)
+    return np.log(p / (1.0 - p))
+
+
+def test_crepe_bf16_matches_jax(crepes):
+    from ddsp_tpu.models import crepe as jax_crepe
+    from ddsp_tpu.models.encoder import f0_encoder_apply as jax_f0
+
+    params, crepe = crepes
+    kw = dict(sample_rate=4000, n_fft=256, hop_length=64)
+    rng = np.random.default_rng(3)
+    t = np.arange(2000) / 4000
+    audio = (0.5 * np.sin(2 * np.pi * 220 * t) + 0.05 * rng.standard_normal((2, t.size))
+             ).astype(np.float32)
+    jconf = JaxConfig(**kw, crepe_compute_dtype="bfloat16")
+    want = np.asarray(jax.jit(lambda p, a: jax_f0(p, a, jconf)["probabilities"])(params, audio))
+    with torch.no_grad():
+        out = f0_encoder_apply(crepe, torch.from_numpy(audio),
+                               Config(**kw, crepe_compute_dtype="bfloat16"))
+        f32 = f0_encoder_apply(crepe, torch.from_numpy(audio), Config(**kw))
+    got = out["probabilities"].numpy()
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    assert _snr(_logits(want), _logits(got)) >= 74.0, _snr(_logits(want), _logits(got))
+    assert _snr(_logits(want), _logits(f32["probabilities"].numpy())) < 74.0
+
+    frames = rng.standard_normal((4, 1024)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda p, f: jax_crepe.crepe_forward(
+        p, f, compute_dtype=jnp.bfloat16))(params, frames))
+    with torch.no_grad():
+        got = port_crepe.crepe_forward(crepe, torch.from_numpy(frames),
+                                       compute_dtype=torch.bfloat16).numpy()
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    assert _snr(_logits(want), _logits(got)) >= 74.0, _snr(_logits(want), _logits(got))
+
+
+def _old_mlp(mlp, x):
+    """The MLP's forward before compute_dtype was honoured."""
+    for layer in mlp.children():
+        x = layer(x)
+    return x
+
+
+def _old_crepe_forward(crepe, frames):
+    """crepe_forward before crepe_compute_dtype was honoured."""
+    x = frames[:, None, :]
+    for i in range(6):
+        conv, bn = getattr(crepe, f"conv{i + 1}"), getattr(crepe, f"conv{i + 1}_BN")
+        x = F.conv1d(F.pad(x, port_crepe.PADS[i]), conv.weight, stride=port_crepe.STRIDES[i])
+        x = torch.relu(x + conv.bias[:, None])
+        scale = bn.weight * torch.rsqrt(bn.running_var + port_crepe.BN_EPS)
+        x = (x - bn.running_mean[:, None]) * scale[:, None] + bn.bias[:, None]
+        x = F.max_pool1d(x, 2, 2)
+    b, c, h = x.shape
+    return torch.sigmoid(crepe.classifier(x.transpose(1, 2).reshape(b, h * c)))
+
+
+def test_float32_defaults_are_bit_equal_to_before(decoders, crepes):
+    _, decoder = decoders
+    conf = Config(**TINY)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(conf, 2).items() if k != "audio"}
+    ctl = decoder.controller
+    with torch.no_grad():
+        got, hidden = controller_apply(ctl, batch)
+        lf0 = _old_mlp(ctl.mlp_f0, batch["normalized_cents"])
+        lld = _old_mlp(ctl.mlp_loudness, batch["loudness"])
+        latent, want_hidden = ctl.gru(torch.cat([lf0, lld], -1))
+        latent = _old_mlp(ctl.mlp_gru, torch.cat([latent, lf0, lld], -1))
+        assert torch.equal(hidden, want_hidden)
+        assert torch.equal(got["c"], 2.0 * torch.sigmoid(ctl.dense_harmonic(latent)) ** 2.3026
+                           + 1e-7)
+        assert torch.equal(got["H"], 2.0 * torch.sigmoid(ctl.dense_filter(latent)) ** 2.3026
+                           + 1e-7)
+        frames = torch.from_numpy(np.random.default_rng(4).standard_normal((3, 1024))
+                                  .astype(np.float32))
+        assert torch.equal(port_crepe.crepe_forward(crepes[1], frames),
+                           _old_crepe_forward(crepes[1], frames))
+
+
+def test_upsample_linear_matches_jax_and_interpolate():
+    from ddsp_tpu.ops.interp import upsample_linear as jax_upsample
+
+    x = np.random.default_rng(0).standard_normal((2, 7, 3)).astype(np.float32)
+    for hop in (1, 4, 64, 100):
+        got = upsample_linear(torch.from_numpy(x), hop).numpy()
+        np.testing.assert_allclose(got, np.asarray(jax_upsample(jnp.asarray(x), hop)),
+                                   rtol=0, atol=1e-6)
+        ref = F.interpolate(torch.from_numpy(x).permute(0, 2, 1), scale_factor=hop,
+                            mode="linear", align_corners=False).permute(0, 2, 1).numpy()
+        assert got.shape == (2, 7 * hop, 3)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+
+
+def test_count_params_matches_jax(decoders, crepes):
+    from ddsp_tpu.models.nn import count_params as jax_count
+
+    assert count_params(decoders[1]) == jax_count(decoders[0])
+    assert count_params(crepes[1]) == jax_count(crepes[0])
