@@ -156,11 +156,28 @@ Phases, each of which must pass (any failure exits non-zero):
    ``f0_encoder_apply`` on two 2 s tones, card vs CPU, argmax bins equal
    (the first audio seed whose bins agree, as phase 9 chooses), the
    logits' agreement printed.
+16. offline reconstruction at full ``Config()`` width: a 60 s, 48 kHz,
+   stereo 16-bit WAV (a seeded gliding tone plus noise), phase 9's seeded
+   weights written as a Lightning ``.ckpt`` (``save_torch_decoder``) and a
+   CREPE ``.pth``; ``python -m ddsp_tpu_torch.reconstruct`` on it with
+   ``--export_torch`` in a process of its own: exit 0, its stats JSON, a
+   finite, not silent output WAV of the prepared length, the export read
+   back bit-equal; in this process ``reconstruct_file`` (counted from 0)
+   launches K1 once on the rotation fill and no other hand kernel, and
+   writes the CLI's output again; K1 on that call's operands (B=1, T =
+   5,168 frames) against its plain version in frame chunks > 90 dB, timed
+   a call and in a CUDA graph beside its bound and its rot floor estimate;
+   the warm call's wall seconds and real-time factor, and the card's busy
+   ms and launches over one profiled call, printed; the card against the
+   CPU's plain path on the file's first 4 s: f0 bins equal, loudness
+   within 1e-5, audio > 100 dB.
 
 The line before the last is a JSON object describing each kernel (launches
 on its main path, the real-time path's launches of K5 and K1 as
-``launches_realtime``, agreement with its plain version, kernel, plain,
-bound and library times); the last line is ``{"ok": true, "device": {...}}``.
+``launches_realtime``, the reconstruction's K1 launches as
+``launches_reconstruct`` with its timing at that shape, agreement with its
+plain version, kernel, plain, bound and library times); the last line is
+``{"ok": true, "device": {...}}``.
 Without CUDA the script exits non-zero and prints no result.  It imports
 nothing of jax or ddsp_tpu.
 """
@@ -274,6 +291,26 @@ CT_ITERS = 20
 RT_BLOCKS = 200
 RT_LIVE_FRAMES = 4
 RT_PROFILE_HOPS = 30
+# phase 16: offline reconstruction of a 60 s, 48 kHz stereo 16-bit WAV
+RECON_SECONDS, RECON_RATE = 60, 48000
+RECON_CPU_SECONDS = 4  # the card vs the CPU's plain path on the first 4 s
+RECON_PLAIN_FRAMES = 1024  # K1's plain version in chunks of this many frames
+RECON_LOUD_ATOL = 1e-5
+# reconstruct_file's float audio on the card vs on the CPU over the first
+# 4 s: 125.41 dB (H100 80GB HBM3, 700.00 W); the floor leaves a margin
+# under it
+RECON_AUDIO_FLOOR_DB = 100.0
+# An untrained reverb (wet 0, decay 5) has an impulse response of gain ~20:
+# its output (rms ~6) would clip to +-1 in the 16-bit WAV almost
+# everywhere.  At this wet logit the seeded decoder's output stays inside
+# +-1 (rms ~0.26 on the CPU), so the WAV checks see the amplitudes.
+RECON_REVERB_WET = -6.0
+# the WAV's step: |16-bit sample - the float written| stays below it
+WAV_STEP = 2.0 / 32768
+# K1's rot issue-slot floor at the training shape (16 x 172 x 512 =
+# 1,409,024 samples, PERF.md section 6), scaled by samples: an estimate,
+# not a measurement
+K1_ROT_FLOOR_MS, K1_ROT_FLOOR_SAMPLES = 0.0991, 1409024
 
 
 def log(msg: str) -> None:
@@ -898,7 +935,7 @@ def phase_training(device):
     import torch
 
     from ddsp_tpu_torch.config import Config
-    from ddsp_tpu_torch.ops.cuda import ct_conv, osc_frames, stft
+    from ddsp_tpu_torch.ops.cuda import launch_counts, osc_frames, reset_launch_counts
     from ddsp_tpu_torch.ops.fir import PRNGKey
     from ddsp_tpu_torch.training import train, trainer
 
@@ -911,24 +948,20 @@ def phase_training(device):
             f"--checkpoint_every={TRAIN_WINDOW}", f"--batch_size={conf.batch_size}",
             f"--device={device.type}"]
     stdout = io.StringIO()
-    osc_frames.FWD_LAUNCHES = osc_frames.BWD_LAUNCHES = 0  # the main path from here
-    osc_frames.OVERLAP_LAUNCHES = 0
-    osc_frames.VARIANT_LAUNCHES.clear()
-    stft.FWD_LAUNCHES = stft.BWD_LAUNCHES = 0
-    ct_conv.LAUNCHES = ct_conv.DSIGNAL_LAUNCHES = 0
+    reset_launch_counts()  # the main path from here
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(stdout):
         state = train.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd, bwd, s1 = osc_frames.FWD_LAUNCHES, osc_frames.BWD_LAUNCHES, ct_conv.LAUNCHES
-    fused, by_variant = ct_conv.DSIGNAL_LAUNCHES, dict(osc_frames.VARIANT_LAUNCHES)
-    overlap = osc_frames.OVERLAP_LAUNCHES
+    counts, by_variant = launch_counts(), dict(osc_frames.VARIANT_LAUNCHES)
+    fwd, bwd, s1 = counts["osc_frames_fwd"], counts["osc_frames_bwd"], counts["ct_conv"]
+    fused, overlap = counts["ct_conv_dsignal"], counts["osc_frames_overlap_add"]
     rot = {k: osc_frames.variant_name(k, "rot") for k in ("osc_frames_fwd", "osc_frames_bwd")}
     require(by_variant == {rot["osc_frames_fwd"]: fwd, rot["osc_frames_bwd"]: bwd},
             f"the default train path launched {by_variant}, not K1/K2 on the rotation fill")
     require(fused == s1, f"S1 launched {s1} times, {fused} through the fused d/dsignal entry")
-    require(stft.FWD_LAUNCHES == stft.BWD_LAUNCHES == 0,
+    require(counts["stft_power_fwd"] == counts["stft_power_bwd"] == 0,
             "the 'auto' STFT route launched the power-STFT kernels")
     for line in stdout.getvalue().splitlines():
         log(f"[train] | {line}")
@@ -1296,7 +1329,7 @@ def phase_finetune_cli(device, auto_ms: float):
 
     from ddsp_tpu_torch.config import Config
     from ddsp_tpu_torch.data import dataset
-    from ddsp_tpu_torch.ops.cuda import ct_conv, osc_frames, stft
+    from ddsp_tpu_torch.ops.cuda import launch_counts, osc_frames, reset_launch_counts
     from ddsp_tpu_torch.ops.fir import PRNGKey
     from ddsp_tpu_torch.ops.spectral import set_stft_impl
     from ddsp_tpu_torch.training import train, trainer
@@ -1313,23 +1346,13 @@ def phase_finetune_cli(device, auto_ms: float):
     set_stft_impl("pallas")
     try:
         # the main path from here
-        stft.FWD_LAUNCHES = stft.BWD_LAUNCHES = stft.BWD_RECOMPUTE_LAUNCHES = 0
-        osc_frames.FWD_LAUNCHES = osc_frames.BWD_LAUNCHES = osc_frames.OVERLAP_LAUNCHES = 0
-        osc_frames.VARIANT_LAUNCHES.clear()
-        ct_conv.LAUNCHES = ct_conv.DSIGNAL_LAUNCHES = 0
+        reset_launch_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(stdout):
             state = train.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"stft_power_fwd": stft.FWD_LAUNCHES, "stft_power_bwd": stft.BWD_LAUNCHES,
-                    "stft_power_bwd_recompute": stft.BWD_RECOMPUTE_LAUNCHES,
-                    "osc_frames_fwd": osc_frames.FWD_LAUNCHES,
-                    "osc_frames_bwd": osc_frames.BWD_LAUNCHES,
-                    "osc_frames_overlap_add": osc_frames.OVERLAP_LAUNCHES,
-                    "ct_conv": ct_conv.LAUNCHES,
-                    "ct_conv_dsignal": ct_conv.DSIGNAL_LAUNCHES,
-                    "by_variant": dict(osc_frames.VARIANT_LAUNCHES)}
+        launches = dict(launch_counts(), by_variant=dict(osc_frames.VARIANT_LAUNCHES))
         for line in stdout.getvalue().splitlines():
             log(f"[finetune-cli] | {line}")
         rows = [json.loads(line) for line in open(os.path.join(ckpt_dir, "metrics.jsonl"))]
@@ -2096,6 +2119,251 @@ def phase_precision(device):
 
 
 
+# --------------------------------------------------------------- phase 16
+
+
+def write_glide_wav(path: str, seconds: float, rate: int, seed: int) -> None:
+    """A seeded gliding tone (110 -> 440 Hz) plus noise, stereo, 16-bit:
+    the common recorder format."""
+    from ddsp_tpu_torch.data.audio_io import write_wav
+
+    rng = np.random.default_rng(seed)
+    n = int(seconds * rate)
+    f = 110.0 * 4.0 ** (np.arange(n) / n)
+    tone = 0.5 * np.sin(2 * np.pi * np.cumsum(f) / rate)
+    audio = tone[None] * np.array([[0.9], [0.6]]) + 0.02 * rng.standard_normal((2, n))
+    write_wav(path, audio.astype(np.float32), rate)
+
+
+class written_audio:
+    """Records the float audio that ``reconstruct_file`` hands to
+    ``write_wav``, in the order written: what its WAV holds before the
+    16-bit rounding."""
+
+    def __enter__(self) -> list:
+        from ddsp_tpu_torch import reconstruct
+
+        self.write, written = reconstruct.write_wav, []
+
+        def recorded(path, audio, rate):
+            written.append(np.array(audio))
+            self.write(path, audio, rate)
+
+        reconstruct.write_wav = recorded
+        return written
+
+    def __exit__(self, *exc) -> None:
+        from ddsp_tpu_torch import reconstruct
+
+        reconstruct.write_wav = self.write
+
+
+def device_kernel_ns(prof) -> list:
+    """The duration (ns) of every kernel the profiler saw on the card (its
+    device events but copies, fills and the ``record_function`` ranges),
+    read from its raw events: building the event tree of ~70k launches
+    takes longer than the call it profiled."""
+    import torch
+
+    return [e.duration_ns() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation()
+            and not e.name().startswith(("Memcpy", "Memset"))]
+
+
+def phase_reconstruct(device):
+    """Offline reconstruction at full width: the CLI on a 60 s, 48 kHz
+    stereo WAV (Lightning .ckpt in, CREPE .pth, --export_torch); in-process
+    the one K1 launch of ``reconstruct_file`` (the main path, counted) and
+    its float output against the CLI's WAV, K1 on the file's operands vs
+    its plain version and timed, one profiled call, and ``reconstruct_file``
+    on the card vs on the CPU's plain path over the file's first 4 s."""
+    import torch
+
+    from ddsp_tpu_torch.config import Config
+    from ddsp_tpu_torch.data.audio_io import read_wav, write_wav
+    from ddsp_tpu_torch.models.autoencoder import autoencoder_init, encode
+    from ddsp_tpu_torch.models.convert import load_lightning_decoder
+    from ddsp_tpu_torch.models.crepe import save_torch_checkpoint
+    from ddsp_tpu_torch.models.lightning_export import save_torch_decoder
+    from ddsp_tpu_torch.ops.cuda import launch_counts, osc_frames, reset_launch_counts
+    from ddsp_tpu_torch.ops.fir import PRNGKey
+    from ddsp_tpu_torch.reconstruct import prepare_audio, reconstruct_file
+
+    conf = Config()
+    params = autoencoder_init(PRNGKey(FT_PARAM_SEED), conf)  # phase 9's weights
+    decoder, crepe = params["decoder"], params["crepe"]
+    with torch.no_grad():
+        decoder.reverb.wet.fill_(RECON_REVERB_WET)
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = {k: os.path.join(tmp, k) for k in (
+            "in.wav", "out.wav", "dec.ckpt", "crepe.pth", "export.ckpt", "again.wav",
+            "head.wav")}
+        write_glide_wav(path["in.wav"], RECON_SECONDS, RECON_RATE, SEED + 16)
+        save_torch_decoder(decoder, conf, path["dec.ckpt"])
+        save_torch_checkpoint(crepe, path["crepe.pth"])
+        padded = prepare_audio(path["in.wav"], conf).shape[1]
+
+        # the user's entry point: the CLI, in a process of its own
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ddsp_tpu_torch.reconstruct", path["in.wav"],
+             path["out.wav"], f"--lightning_ckpt={path['dec.ckpt']}",
+             f"--crepe_checkpoint={path['crepe.pth']}", f"--export_torch={path['export.ckpt']}"],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+            timeout=600)
+        cli_s = time.perf_counter() - t0
+        stamps = {"cli": cli_s}
+        require(proc.returncode == 0, f"reconstruct CLI exit {proc.returncode}: "
+                f"{proc.stderr[-2000:]}")
+        stats = json.loads(next(ln for ln in proc.stdout.splitlines() if ln.startswith("{")))
+        out, sr = read_wav(path["out.wav"])
+        log(f"[reconstruct] CLI on a {RECON_SECONDS} s {RECON_RATE} Hz stereo WAV: {stats}; "
+            f"{cli_s:.1f} s for the whole process; output {out.shape} at {sr} Hz")
+        require(stats["device"].startswith("cuda") and sr == conf.sample_rate
+                and out.shape == (1, padded), f"reconstruct CLI wrote {out.shape} at {sr} Hz "
+                f"on {stats['device']}, not (1, {padded}) at {conf.sample_rate}")
+        require(np.isfinite(out).all() and np.abs(out).max() > 1e-3,
+                "reconstruct CLI output not finite or silent")
+        exported = load_lightning_decoder(path["export.ckpt"], conf).state_dict()
+        require(all(torch.equal(exported[k], v) for k, v in decoder.state_dict().items()),
+                "the exported decoder does not read back bit-equal")
+        result["cli"] = dict(stats, process_s=cli_s)
+
+        # the main path in this process: counted from 0, one K1 launch
+        calls, launch = [], osc_frames.osc_frames_fwd
+
+        def recorded(*args, **kwargs):
+            calls.append((args, kwargs, launch(*args, **kwargs)))
+            return calls[-1][2]
+
+        osc_frames.osc_frames_fwd = recorded
+        try:
+            with written_audio() as written:
+                reset_launch_counts()
+                first = reconstruct_file(path["in.wav"], path["again.wav"], conf,
+                                         crepe_checkpoint=path["crepe.pth"], decoder=decoder,
+                                         device=device)
+                counts, by_variant = launch_counts(), dict(osc_frames.VARIANT_LAUNCHES)
+        finally:
+            osc_frames.osc_frames_fwd = launch
+        k1_rot = osc_frames.variant_name("osc_frames_fwd", "rot")
+        launched = {k: v for k, v in counts.items() if v}
+        log(f"[reconstruct] reconstruct_file on the card: hand kernels launched {launched} "
+            f"{by_variant}; wall {first['wall_s']:.3f} s (the first call in this process)")
+        require(launched == {"osc_frames_fwd": 1} and by_variant == {k1_rot: 1},
+                f"reconstruct_file launched {launched} {by_variant}, not one {k1_rot}")
+        # the float audio, not its WAV: no sample clipped, and the CLI's WAV
+        # within a 16-bit step of it
+        audio_out, peak = written[0], float(np.abs(written[0]).max())
+        cli_err = float(np.abs(out - audio_out).max())
+        log(f"[reconstruct] reconstruct_file's float output: rms {first['rms_out']:.5f} (input "
+            f"{first['rms_in']:.5f}), peak {peak:.5f}; the CLI's WAV within {cli_err:.3e} of it "
+            f"(<= {WAV_STEP:.3e}, a 16-bit step)")
+        require(peak < 1.0, f"reconstruct_file's output peaks at {peak:.3f}: the WAV clips")
+        require(cli_err <= WAV_STEP, f"the CLI's WAV is {cli_err:.3e} from reconstruct_file's "
+                "float output")
+        require(np.array_equal(read_wav(path["again.wav"])[0], out),
+                "reconstruct_file's WAV differs from the CLI's")
+
+        stamps["counted call"] = time.perf_counter() - t0 - sum(stamps.values())
+
+        # K1 on the file's own operands, vs its plain version in frame chunks
+        (phase, amps_pad, loud_pad, h_start), kw, k1_out = calls[0][0][:4], calls[0][1], calls[0][2]
+        b, t, hop = phase.shape
+        h = amps_pad.shape[-1]
+
+        def plain():
+            return torch.cat([osc_frames.render_from_phase_variant_plain(
+                phase[:, a:a + RECON_PLAIN_FRAMES].contiguous(),
+                amps_pad[:, a:a + RECON_PLAIN_FRAMES + 2].contiguous(),
+                loud_pad[:, a:a + RECON_PLAIN_FRAMES + 2].contiguous(), h_start, **kw)
+                for a in range(0, t, RECON_PLAIN_FRAMES)], dim=1)
+
+        with torch.no_grad():
+            want = plain().cpu().numpy()
+            got = k1_out.cpu().numpy()
+            snr, err = snr_db(want, got), float(np.abs(got - want).max())
+            ms = cuda_ms(lambda: launch(phase, amps_pad, loud_pad, h_start, **kw), iters=50)
+            in_graph = graph_ms(lambda: launch(phase, amps_pad, loud_pad, h_start, **kw),
+                                iters=50)
+            plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        (bound_ms, bound_by), floor_ms = (frame_bounds_ms(b, t, hop, h)[0],
+                                          K1_ROT_FLOOR_MS * b * t * hop
+                                          / K1_ROT_FLOOR_SAMPLES)
+        log(f"[reconstruct] K1 at the file's shape (B={b}, T={t}, hop {hop}, H={h}, "
+            f"{kw.get('fill')}): vs plain {snr:.2f} dB (> {KERNEL_SNR_FLOOR_DB}), max |err| "
+            f"{err:.3e}; {ms:.5f} ms a call, {in_graph:.5f} ms in a CUDA graph, plain "
+            f"{plain_ms:.5f} ms in chunks of {RECON_PLAIN_FRAMES} frames; bound {bound_ms:.5f} "
+            f"ms ({bound_by}), rot issue-slot floor ~{floor_ms:.4f} ms (the training shape's, "
+            "scaled)")
+        require(snr > KERNEL_SNR_FLOOR_DB, f"K1 at the file's shape vs plain {snr:.2f} dB")
+        result["k1"] = dict(shape=[b, t, hop, h], snr_db=snr, max_abs_err=err, ms=ms,
+                            graph_ms=in_graph, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by)
+        del calls, k1_out
+        stamps["K1 vs plain, timed"] = time.perf_counter() - t0 - sum(stamps.values())
+
+        # warm wall time and the real-time factor, then one profiled call
+        warm = reconstruct_file(path["in.wav"], path["again.wav"], conf,
+                                crepe_checkpoint=path["crepe.pth"], decoder=decoder,
+                                device=device)
+        # the card's activity alone: ~70k launches' host events would take
+        # the profiler longer to gather than the call takes
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            profiled = reconstruct_file(path["in.wav"], path["again.wav"], conf,
+                                        crepe_checkpoint=path["crepe.pth"], decoder=decoder,
+                                        device=device)
+        kernels = device_kernel_ns(prof)
+        busy_ms = 1e-6 * sum(kernels)
+        rtf = warm["seconds"] / warm["wall_s"]
+        log(f"[reconstruct] reconstruct_file warm: {warm['wall_s']:.3f} s wall for "
+            f"{warm['seconds']:.3f} s of audio, {rtf:.1f}x real time; profiled call: "
+            f"{profiled['wall_s']:.3f} s wall, card busy {busy_ms:.3f} ms, {len(kernels)} "
+            f"kernel launches" + ("" if kernels else "; the profiler saw no device kernels"))
+        stamps["warm + profiled calls"] = time.perf_counter() - t0 - sum(stamps.values())
+        result.update(first_wall_s=first["wall_s"], wall_s=warm["wall_s"], realtime_factor=rtf,
+                      profiled_wall_s=profiled["wall_s"],
+                      busy_ms=busy_ms if kernels else None, kernel_launches=len(kernels))
+
+        # the card vs the CPU's plain path on the file's first
+        # RECON_CPU_SECONDS: the features through encode, the float audio
+        # through the entry point
+        wav, rate = read_wav(path["in.wav"])
+        write_wav(path["head.wav"], wav[:, :RECON_CPU_SECONDS * rate], rate)
+        audio = torch.from_numpy(prepare_audio(path["head.wav"], conf))
+        feats, rendered = {}, {}
+        for dev in (device, torch.device("cpu")):
+            on = params.to(dev)
+            with torch.no_grad():
+                f = encode(on, audio.to(dev), conf)
+            feats[dev.type] = {k: v.cpu().double().numpy() for k, v in f.items()}
+            with written_audio() as written:
+                reconstruct_file(path["head.wav"], path["again.wav"], conf,
+                                 crepe_checkpoint=path["crepe.pth"], decoder=decoder, device=dev)
+            rendered[dev.type] = written[0]
+        params.to("cpu")
+        bins = {k: v["probabilities"].argmax(-1) for k, v in feats.items()}
+        differ = int((bins["cuda"] != bins["cpu"]).sum())
+        loud_err = float(np.abs(feats["cuda"]["loudness"] - feats["cpu"]["loudness"]).max())
+        f0_rel = float(np.abs(feats["cuda"]["f0"] / feats["cpu"]["f0"] - 1).max())
+        audio_db = snr_db(rendered["cpu"], rendered["cuda"])
+        log(f"[reconstruct] card vs CPU on the first {RECON_CPU_SECONDS} s "
+            f"({bins['cpu'].size} frames): {differ} f0 bins differ, loudness max |diff| "
+            f"{loud_err:.3e} (<= {RECON_LOUD_ATOL}), f0 max relative diff {f0_rel:.3e}, audio "
+            f"{audio_db:.2f} dB (> {RECON_AUDIO_FLOOR_DB})")
+        require(differ == 0, f"{differ} f0 bins differ card vs CPU")
+        require(loud_err <= RECON_LOUD_ATOL, f"loudness card vs CPU {loud_err:.3e}")
+        require(audio_db > RECON_AUDIO_FLOOR_DB, f"audio card vs CPU {audio_db:.2f} dB <= "
+                f"{RECON_AUDIO_FLOOR_DB}")
+        stamps["card vs CPU"] = time.perf_counter() - t0 - sum(stamps.values())
+        log("[reconstruct] seconds by step: " + ", ".join(f"{k} {v:.1f}" for k, v in stamps.items()))
+        result.update(launches=counts["osc_frames_fwd"], cpu_bins_differ=differ,
+                      cpu_loudness_err=loud_err, cpu_f0_rel=f0_rel, cpu_audio_db=audio_db)
+    return result
+
+
+
 def timed_phase(phase: int, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2154,6 +2422,7 @@ def main() -> int:
     s1 = timed(13, phase_ct_conv, device)
     realtime = timed(14, phase_realtime, device)
     timed(15, phase_precision, device)
+    recon = timed(16, phase_reconstruct, device)
 
     no_library = ("null: no single PyTorch call computes a harmonic sine-bank render or its "
                   "gradient; the nearest is the plain version")
@@ -2172,8 +2441,10 @@ def main() -> int:
             launches=train_launches[name], launches_by_variant={
                 k: v for k, v in train_launches["by_variant"].items() if k.startswith(name)},
             library_ms=None, library=no_library, **frames[name]))
-    next(k for k in kernels if k["name"] == "osc_frames_fwd")["launches_realtime"] = (
-        realtime["live"]["launches"])
+    k1 = next(k for k in kernels if k["name"] == "osc_frames_fwd")
+    k1["launches_realtime"] = realtime["live"]["launches"]
+    k1["launches_reconstruct"] = recon["launches"]
+    k1["reconstruct_shape"] = recon["k1"]
     kernels.append(dict(
         name="osc_frames_overlap_add", route="cuda", source="ddsp_tpu_torch/csrc/osc_frames.cu",
         replaces="ddsp_tpu/ops/pallas/oscillator.py:777", tpu_function="_kernel_banked2_bwd "

@@ -3,8 +3,9 @@
 Counterpart of ``ddsp_tpu/data/dataset.py`` (reference
 dataset/audio_dataset.py:14-113):
 
-* WAV files only: a directory of compressed audio raises with a request
-  to convert to wav (the port has no compressed decoder);
+* WAV files, plus mp3 / ogg / flac when a decoder backend is installed
+  (``data/audio_io.read_audio``); the corpus decodes through the native
+  parallel decoder (``native.load_corpus_mono``);
 * caches are ``.npz`` keyed by a hash of the ingest config, the file list
   and mtimes, and -- for features -- the CREPE weights' content;
 * feature extraction runs the frozen encoder batch by batch on the device;
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from ddsp_tpu_torch.config import Config
-from ddsp_tpu_torch.data.audio_io import UnsupportedAudioFormat, read_audio
+from ddsp_tpu_torch.data.audio_io import UnsupportedAudioFormat, have_compressed_backend
 from ddsp_tpu_torch.device import resolve_device
 from ddsp_tpu_torch.models.autoencoder import feature_pad
 from ddsp_tpu_torch.models.crepe import Crepe
@@ -61,25 +62,27 @@ def _params_digest(module: torch.nn.Module) -> str:
 
 
 def list_audio_files(data_dir: str):
-    """The sorted ``.wav`` files under ``data_dir`` (recursive).
-
-    mp3 / ogg / flac files are skipped beside wav files; a directory that
-    holds only compressed audio raises, as the JAX package does without a
-    decoder backend."""
+    """The sorted ``.wav`` files under ``data_dir`` (recursive), with its
+    mp3 / ogg / flac files when a decoder backend is installed (the
+    reference's glob, audio_dataset.py:22-24).  Without a backend the
+    compressed files are skipped beside wav files, and a directory that
+    holds only compressed audio raises."""
     files = []
     for ext in ("wav", "WAV"):
         files += glob.glob(os.path.join(data_dir, "**", f"*.{ext}"), recursive=True)
-    if not files:
-        compressed = []
-        for ext in ("mp3", "ogg", "flac"):
-            compressed += glob.glob(
-                os.path.join(data_dir, "**", f"*.{ext}"), recursive=True
-            )
-        if compressed:
+    compressed = []
+    for ext in ("mp3", "ogg", "flac"):
+        compressed += glob.glob(os.path.join(data_dir, "**", f"*.{ext}"), recursive=True)
+    if compressed:
+        if have_compressed_backend():
+            files += compressed
+        elif not files:
             raise UnsupportedAudioFormat(
-                f"Only compressed audio found ({compressed[:3]}...); "
-                "ddsp_tpu_torch reads wav only: convert to wav"
+                f"Only compressed audio found ({compressed[:3]}...) and no decoder "
+                "backend (soundfile/torchaudio/librosa/pygame) is installed; "
+                "convert to wav"
             )
+    if not files:
         raise ValueError(f"No valid audio files found in {data_dir!r}")
     return sorted(files)
 
@@ -87,19 +90,20 @@ def list_audio_files(data_dir: str):
 def load_examples(conf: Config, clear: bool = False) -> np.ndarray:
     """(N, example_length) float32 overlapping examples, cached to npz.
 
-    Load each file, mix to mono (the channel mean), resample to
-    ``conf.sample_rate``, pad to a hop multiple (split half and half) and
-    unfold 2 s windows stepped by 0.5 s (audio_dataset.py:14-71).
+    Load each file mixed to mono (the channel mean; the native parallel
+    decoder, ``native.load_corpus_mono``), resample to ``conf.sample_rate``,
+    pad to a hop multiple (split half and half) and unfold 2 s windows
+    stepped by 0.5 s (audio_dataset.py:14-71).
     """
     files = list_audio_files(conf.data_dir)
     cache = os.path.join(conf.data_dir, f"audio_dataset_{_cache_tag(conf, files)}.npz")
     if os.path.exists(cache) and not clear:
         return np.load(cache)["examples"]
 
+    from ddsp_tpu_torch.native import load_corpus_mono
+
     chunks = []
-    for path in files:
-        wav, sr = read_audio(path)
-        y = wav.mean(axis=0) if wav.shape[0] > 1 else wav[0]
+    for y, sr in load_corpus_mono(files):
         if sr != conf.sample_rate:
             y = resample(torch.from_numpy(np.ascontiguousarray(y)), sr,
                          conf.sample_rate).numpy()

@@ -7,13 +7,22 @@
   modules back in that layout, so a test can compare parameters after a
   training or finetune step;
 * ``decoder_from_state_dict`` / ``load_lightning_decoder`` read the
-  reference Decoder layout, which ``ddsp_tpu/models/torch_export.py``
-  writes and the reference's Lightning checkpoints hold.
+  reference Decoder layout, which ``ddsp_tpu/models/torch_export.py`` and
+  ``models/lightning_export.py`` write and the reference's Lightning
+  checkpoints hold; ``find_latest_lightning_checkpoint`` finds the newest
+  of them in a ``lightning_logs`` tree;
+* ``decoder_from_orbax`` reads the decoder of a ``step_*`` directory that
+  the JAX package's trainer wrote with Orbax, through ``tensorstore``
+  alone (imported at the call; no jax or orbax).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import glob
+import json
+import os
+import re
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +62,84 @@ def load_lightning_decoder(path: str, conf: Config) -> Decoder:
         {k[6:] if k.startswith("model.") else k: v for k, v in sd.items()},
         conf,
     )
+
+
+def find_latest_lightning_checkpoint(logs_dir: str, version: int) -> str:
+    """Newest ``*.ckpt`` under ``lightning_logs/version_N/checkpoints``, by
+    the epoch number in its file name (reference rt/utils.py:8-16)."""
+    pattern = os.path.join(logs_dir, f"version_{version}", "checkpoints", "*.ckpt")
+    files = glob.glob(pattern)
+    if not files:
+        raise FileNotFoundError(pattern)
+
+    def epoch_of(f):
+        m = re.search(r"epoch=(\d+)", os.path.basename(f))
+        return int(m.group(1)) if m else -1
+
+    return max(files, key=epoch_of)
+
+
+def is_orbax_checkpoint(path: str) -> bool:
+    """Whether ``path`` is a ``step_*`` directory written by Orbax (the JAX
+    package's trainer, ``ddsp_tpu/training/trainer.py:373-443``)."""
+    return any(os.path.exists(os.path.join(path, f)) for f in ("_METADATA", "manifest.ocdbt"))
+
+
+def _orbax_leaves(path: str) -> Tuple[List[List[str]], bool]:
+    """The key path of every leaf in an Orbax checkpoint's ``_METADATA``,
+    and whether its arrays are zarr3."""
+    with open(os.path.join(path, "_METADATA")) as f:
+        meta = json.load(f)
+    if "tree_metadata" not in meta:
+        raise FileNotFoundError(
+            f"{path}: an Orbax checkpoint of the JAX package whose _METADATA lists no "
+            "arrays (an unfinished save, or not its trainer's)")
+    return [[str(k["key"]) for k in leaf["key_metadata"]]
+            for leaf in meta["tree_metadata"].values()], bool(meta.get("use_zarr3"))
+
+
+def decoder_from_orbax(path: str, conf: Config) -> Decoder:
+    """The decoder of a JAX-package Orbax checkpoint directory -> :class:`Decoder`.
+
+    Each leaf under ``params`` (or ``params.decoder``, a finetune
+    checkpoint's) is read with ``tensorstore`` from the directory's OCDBT
+    store, under its key path joined with ``.``; the tree then goes through
+    :func:`decoder_from_jax`.  The optimizer state, step and key are not
+    read (the JAX package's ``reconstruct.load_decoder_params`` reads only
+    the parameters too).  Raises ImportError naming ``tensorstore`` when it
+    is not installed."""
+    try:
+        import tensorstore
+    except ImportError as e:
+        raise ImportError(
+            f"{path} is an Orbax checkpoint of the JAX package: reading it needs the "
+            "'tensorstore' package, which is not installed") from e
+    leaves, zarr3 = _orbax_leaves(path)
+    finetuned = any(k[:2] == ["params", "decoder"] for k in leaves)
+    prefix = ["params", "decoder"] if finetuned else ["params"]
+    tree: Dict = {}
+    base = "file://" + os.path.abspath(path)
+    for keys in leaves:
+        if keys[: len(prefix)] != prefix:
+            continue
+        spec = {"driver": "zarr3" if zarr3 else "zarr",
+                "kvstore": {"driver": "ocdbt", "base": base, "path": ".".join(keys)}}
+        value = tensorstore.open(spec).result().read().result()
+        node = tree
+        for k in keys[len(prefix):-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = np.asarray(value)
+    if "controller" not in tree or "reverb" not in tree:
+        raise KeyError(f"{path}: no decoder parameters under {'.'.join(prefix)}")
+
+    def lists(node):  # {'0': a, '1': b} -> [a, b]: the tree's sequences
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return decoder_from_jax(lists(tree), conf)
 
 
 def decoder_from_jax(np_tree: Dict, conf: Config) -> Decoder:

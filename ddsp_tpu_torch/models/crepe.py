@@ -3,8 +3,9 @@
 Counterpart of ``ddsp_tpu/models/crepe.py`` (reference crepe/crepe.py):
 six [pad -> conv (stride 4, then 1) -> ReLU -> inference BatchNorm
 (eps 1e-3) -> maxpool 2] stages over 1024-sample windows, then a sigmoid
-classifier over 360 pitch bins.  The stack runs as 1-D convolutions in the
-torch-shaped (N, C, H) layout; the JAX package's channels-last form is a
+classifier over 360 pitch bins (``crepe_embed``: the first five stages;
+``crepe_activation``: the map after any stage).  The stack runs as 1-D
+convolutions in the torch-shaped (N, C, H) layout; the JAX package's channels-last form is a
 TPU layout choice with the same math.  Also the three pitch decodes
 (argmax, and the differentiable local averages that finetuning needs) and
 ``make_statistics_trainable`` for the finetune state.
@@ -85,6 +86,19 @@ def load_torch_checkpoint(path: str, capacity: str = "tiny") -> Crepe:
     return model.eval()
 
 
+def save_torch_checkpoint(crepe: Crepe, path: str) -> None:
+    """Write ``crepe`` as a reference CREPE ``.pth`` (conv weights as
+    (O, I, k, 1), no ``num_batches_tracked``): the inverse of
+    :func:`load_torch_checkpoint`, which both packages read."""
+    sd = {}
+    for key, value in crepe.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        value = value.detach().to("cpu", torch.float32).clone()
+        sd[key] = value[..., None] if key.startswith("conv") and value.dim() == 3 else value
+    torch.save(sd, path)
+
+
 def _operands(dtype, *ts):
     """``ts`` rounded to ``dtype`` and back to float32 (None: as they are)."""
     return ts if dtype is None else tuple(t.to(dtype).float() for t in ts)
@@ -101,15 +115,39 @@ def _layer(x: torch.Tensor, conv: nn.Conv1d, bn: nn.BatchNorm1d,
     return F.max_pool1d(x, 2, 2)
 
 
+def _stages(crepe: Crepe, frames: torch.Tensor, n: int, compute_dtype=None) -> torch.Tensor:
+    """The first ``n`` conv stages over (B, 1024) windows -> (B, C, H)."""
+    x = frames[:, None, :]
+    for i in range(n):
+        x = _layer(x, getattr(crepe, f"conv{i + 1}"),
+                   getattr(crepe, f"conv{i + 1}_BN"), STRIDES[i], PADS[i], compute_dtype)
+    return x
+
+
+def crepe_embed(crepe: Crepe, frames: torch.Tensor,
+                compute_dtype: torch.dtype = None) -> torch.Tensor:
+    """First five conv stages: (B, 1024) windows -> (B, C5, 8) features
+    (reference ``Crepe.embed``, crepe/crepe.py:108-120).  The JAX package's
+    ``layout`` argument picks its TPU's channels-last form; the port keeps
+    the (N, C, H) layout, the same math, so it takes none."""
+    return _stages(crepe, frames, 5, compute_dtype)
+
+
+def crepe_activation(crepe: Crepe, frames: torch.Tensor, layer_index: int) -> torch.Tensor:
+    """The activation after conv stage ``layer_index`` (0-based, < 6),
+    (B, C, H): what the DeepDream experiment reads (reference
+    trajectory.py:18-41 takes it with a forward hook)."""
+    if not 0 <= layer_index < 6:
+        raise ValueError(f"layer_index must be in 0..5, got {layer_index}")
+    return _stages(crepe, frames, layer_index + 1)
+
+
 def crepe_forward(crepe: Crepe, frames: torch.Tensor,
                   compute_dtype: torch.dtype = None) -> torch.Tensor:
     """(B, 1024) windows -> (B, 360) sigmoid pitch-bin probabilities,
     with the reference's h-major flatten of the final (B, C, H) map.
     ``compute_dtype``: the operand dtype of the module docstring."""
-    x = frames[:, None, :]
-    for i in range(6):
-        x = _layer(x, getattr(crepe, f"conv{i + 1}"),
-                   getattr(crepe, f"conv{i + 1}_BN"), STRIDES[i], PADS[i], compute_dtype)
+    x = _stages(crepe, frames, 6, compute_dtype)
     b, c, h = x.shape
     x, w = _operands(compute_dtype, x.transpose(1, 2).reshape(b, h * c),
                      crepe.classifier.weight)

@@ -6,7 +6,9 @@ model/autoencoder/encoder.py:13-177):
 * f0: resample to 16 kHz, per-example mean/std normalisation (unbiased
   std, as torch), the aligned CREPE hop ``int(hop * (resampled_len -
   1024) / (orig_len - n_fft))`` so that CREPE frames equal STFT frames
-  (the 172-frame contract), frozen CREPE over unfolded 1024-sample
+  (the 172-frame contract; on long inputs, where that integer hop
+  drifts, the windows are placed at the exact hop so the counts still
+  agree), frozen CREPE over unfolded 1024-sample
   windows (operands rounded to ``conf.crepe_compute_dtype`` when it is
   not 'float32', as in the JAX package), pitch decode by
   ``conf.pitch_decode`` ('argmax', 'weighted' or 'centered_ref');
@@ -81,11 +83,31 @@ def _pitch_decoder(conf: Config):
     return _DECODERS[conf.pitch_decode]
 
 
+def aligned_crepe_frames(x: torch.Tensor, orig_len: int, n_frames: int,
+                         conf: Config) -> torch.Tensor:
+    """(B, T, window) CREPE windows of the 16 kHz signal ``x`` whose frame
+    k starts at floor(k * h) for the aligned hop's exact value h =
+    hop_length * (len(x) - window) / (orig_len - n_fft): ``n_frames``
+    frames, the STFT's, over the whole signal.  The integer hop of
+    :func:`crepe_frame_hop` drifts by its fraction every frame, so past a
+    few seconds at 44.1 kHz it gives more CREPE frames than STFT frames
+    (the JAX package then fails to join f0 and loudness)."""
+    exact = conf.hop_length * (x.shape[-1] - conf.crepe_window) / (orig_len - conf.n_fft)
+    starts = torch.floor(torch.arange(n_frames, dtype=torch.float64) * exact).long()
+    idx = (starts[:, None] + torch.arange(conf.crepe_window)).to(x.device)
+    return x[..., idx]
+
+
 def f0_encoder_apply(
     crepe: Crepe, audio: torch.Tensor, conf: Config, freeze_crepe: bool = True
 ) -> Dict[str, torch.Tensor]:
     """(B, L) audio -> f0 features at the STFT frame rate:
     {'f0', 'harmonicity', 'probabilities', 'normalized_cents'}.
+
+    Where the integer CREPE hop gives another frame count than the STFT's
+    (long inputs), the windows are placed at the exact aligned hop instead
+    (:func:`aligned_crepe_frames`); elsewhere the integer hop, as the JAX
+    package, which on long inputs returns the extra frames.
 
     The frozen encoder runs under ``torch.no_grad``; with
     ``freeze_crepe=False`` the whole encoder is differentiable (the unbiased
@@ -102,6 +124,9 @@ def f0_encoder_apply(
         x = (x - mean) / (std + 1e-8)
         hop = crepe_frame_hop(orig_len, x.shape[-1], conf)
         frames = frame_signal(x, conf.crepe_window, hop)  # (B, T, 1024)
+        n_frames = (orig_len - conf.n_fft) // conf.hop_length + 1  # the STFT's
+        if frames.shape[-2] != n_frames:
+            frames = aligned_crepe_frames(x, orig_len, n_frames, conf)
         b, t, w = frames.shape
         probs = crepe_forward(
             crepe, frames.reshape(b * t, w),

@@ -62,18 +62,81 @@ class MLP(nn.Module):
 def _layer_lowp(layer: nn.Sequential, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """One MLP layer with the roundings to ``dtype`` of the JAX package's
     compiled ``mlp_apply``: each value is computed in float32 and rounded
-    where XLA's compiled form rounds it."""
+    where XLA's compiled form rounds it, the backward of the bias add and
+    the LayerNorm included (:class:`_BiasLayerNormLowp`)."""
     linear, norm, act = layer
 
     def r(t):
         return t.to(dtype).float()
 
-    pre = r(r(x) @ r(linear.weight).T) + r(linear.bias)  # the sum, before its rounding
-    mean = pre.mean(dim=-1, keepdim=True)
-    var = r(((pre - mean) ** 2).mean(dim=-1, keepdim=True))
-    eps = torch.tensor(norm.eps, dtype=dtype).item()  # JAX adds eps in the low dtype
-    inv = r(torch.rsqrt(r(var + eps)))
-    return act(r(r(pre) - r(mean)) * inv * norm.weight + norm.bias)
+    prod = r(r(x) @ r(linear.weight).T)
+    return act(_BiasLayerNormLowp.apply(prod, linear.bias, norm.weight, norm.bias,
+                                        norm.eps, dtype))
+
+
+def _rounded_sum(t: torch.Tensor, dims: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    """Sum of ``t`` over ``dims`` in float32, rounded once to ``dtype``: how
+    XLA reduces a low-precision tensor on an accelerator.  (Its CPU backend
+    rounds after every add instead; the backward below does not follow
+    that, see :class:`_BiasLayerNormLowp`.)"""
+    return t.sum(dim=dims).to(dtype).float()
+
+
+class _BiasLayerNormLowp(torch.autograd.Function):
+    """The low-precision bias add and LayerNorm of :func:`_layer_lowp`,
+    from the rounded dense product to the affine output, with the backward
+    XLA compiles for the JAX package's bf16 ``mlp_apply``
+    (``jax.jit(jax.value_and_grad(loss_fn))``; its LayerNorm and bias
+    transposes, read from the compiled HLO): the cotangents of the
+    low-precision values (the normalised and the centred value, the
+    variance, the mean, the dense sum) rounded where its fusions convert
+    them.  The sums of low-precision values (over the features for the
+    mean's and the rsqrt's cotangents, over the rows for the bias's) go
+    through :func:`_rounded_sum`: float32, rounded once.  XLA's CPU
+    backend rounds them after every add; with that sum in its place the
+    MLP's gradients are bit-equal to JAX's jitted CPU VJP
+    (tests/test_torch_precision.py), but the per-add rounding turns float32
+    noise into bf16 steps, so the card and the CPU would no longer agree.
+    The forward rounds as before: the dense sum before its rounding feeds
+    float32 statistics."""
+
+    @staticmethod
+    def forward(ctx, prod, dense_bias, weight, bias, eps: float, dtype):
+        def r(t):
+            return t.to(dtype).float()
+
+        pre = prod + r(dense_bias)  # the sum, before its rounding
+        mean = pre.mean(dim=-1, keepdim=True)
+        cen = pre - mean  # the variance's centring: float32, unrounded
+        var = r((cen**2).mean(dim=-1, keepdim=True))
+        ve = r(var + torch.tensor(eps, dtype=dtype).item())  # JAX adds eps in the low dtype
+        inv = r(torch.rsqrt(ve))
+        c = r(r(pre) - r(mean))
+        xn = c * inv
+        ctx.save_for_backward(cen, c, inv, ve, xn, weight)
+        ctx.dtype = dtype
+        return xn * weight + bias
+
+    @staticmethod
+    def backward(ctx, gy):
+        cen, c, inv, ve, xn, weight = ctx.saved_tensors
+        dtype, n = ctx.dtype, cen.shape[-1]
+
+        def r(t):
+            return t.to(dtype).float()
+
+        ct_xn = r(gy * weight)
+        a = r(ct_xn * inv)  # through the centred value
+        ct_inv = _rounded_sum(r(c * ct_xn), (-1,), dtype)[..., None]
+        ct_var = r(ct_inv * r(r(inv / ve) * -0.5))
+        k = cen * (ct_var * (2.0 / n))
+        b = r(k - k.sum(dim=-1, keepdim=True) * (1.0 / n))  # through the variance
+        ct_mean = _rounded_sum(r(-a), (-1,), dtype)[..., None]
+        m = r(ct_mean * (1.0 / n))  # through the mean
+        d_pre = r(r(a + b) + m)
+        rows = tuple(range(gy.dim() - 1))
+        return (d_pre, _rounded_sum(d_pre, rows, dtype), (gy * xn).sum(dim=rows),
+                gy.sum(dim=rows), None, None)
 
 
 def count_params(module: nn.Module) -> int:

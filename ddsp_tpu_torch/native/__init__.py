@@ -1,14 +1,16 @@
-"""Native (C++) host runtime of the real-time path: an SPSC ring buffer and
-PCM16 <-> float32 conversion, bound with ``ctypes``.
+"""Native (C++) host runtime, bound with ``ctypes``: the real-time path's
+SPSC ring buffer and PCM16 <-> float32 conversion, and the dataset's
+parallel WAV corpus decoder.
 
 The port's own copy of ``ddsp_tpu/native/__init__.py:RingBuffer``,
-``pcm16_to_f32`` and ``f32_to_pcm16`` over ``ringbuffer.cpp`` (a copy of
-the JAX package's source).  The library is built with ``g++`` at the first
-call that needs it, never at import, into the git-ignored
-``ddsp_tpu_torch/_build/`` (the file name carries a hash of the source and
-the flags).  Nothing falls back quietly: a missing compiler or a failed
-build raises an error that names ``g++`` and carries its output;
-``RingBuffer(..., force_python=True)`` is the only way to the Python ring.
+``pcm16_to_f32``, ``f32_to_pcm16`` and ``load_corpus_mono`` over
+``ringbuffer.cpp`` and ``wavloader.cpp`` (copies of the JAX package's
+sources).  Each library is built with ``g++`` at the first call that needs
+it, never at import, into the git-ignored ``ddsp_tpu_torch/_build/`` (the
+file name carries a hash of the source and the flags).  Nothing falls back
+quietly: a missing compiler or a failed build raises an error that names
+``g++`` and carries its output; ``force_python=True`` is the only way to
+the Python ring or the Python decoder.
 """
 
 from __future__ import annotations
@@ -20,44 +22,48 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 SOURCE = Path(__file__).resolve().with_name("ringbuffer.cpp")
+CORPUS_SOURCE = Path(__file__).resolve().with_name("wavloader.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lib = None
+_corpus_lib = None
 _lock = threading.Lock()
 
 
-def _build() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes())
+def _build(source: Path, what: str) -> Path:
+    """``source`` built into a shared library (once per source and flags);
+    ``what`` names it in the errors, with the way round the build."""
+    digest = hashlib.sha256(source.read_bytes())
     digest.update(" ".join(GXX_FLAGS).encode())
-    lib = BUILD_DIR / f"libringbuffer_{digest.hexdigest()[:16]}.so"
+    lib = BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError(
-            "g++ not found: the native ring buffer is built with g++ at first "
-            "use; install it, or pass force_python=True for the Python ring")
+        raise RuntimeError(f"g++ not found: the native {what} is built with g++ at "
+                           "first use; install it, or pass force_python=True")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(source)],
                           capture_output=True, text=True, timeout=120)
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed on {SOURCE.name}:\n{proc.stderr}")
+        raise RuntimeError(f"g++ failed on {source.name}:\n{proc.stderr}")
     os.replace(tmp, lib)  # atomic: a concurrent process never loads a torn file
     return lib
 
 
 def library() -> ctypes.CDLL:
-    """Build (once per source) and load the native library."""
+    """Build (once per source) and load the ring buffer's library."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build()))
+            lib = ctypes.CDLL(str(_build(SOURCE, "ring buffer")))
             u64, vp = ctypes.c_uint64, ctypes.c_void_p
             fp = ctypes.POINTER(ctypes.c_float)
             i16p = ctypes.POINTER(ctypes.c_int16)
@@ -168,3 +174,66 @@ def f32_to_pcm16(audio: np.ndarray) -> np.ndarray:
     library().f32_to_pcm16(_fptr(audio), out.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
                            audio.size)
     return out
+
+
+def corpus_library() -> ctypes.CDLL:
+    """Build (once per source) and load the corpus decoder's library."""
+    global _corpus_lib
+    with _lock:
+        if _corpus_lib is None:
+            lib = ctypes.CDLL(str(_build(CORPUS_SOURCE, "corpus decoder")))
+            u64, vp = ctypes.c_uint64, ctypes.c_void_p
+            for name, res, args in (
+                ("corpus_load", vp, [ctypes.POINTER(ctypes.c_char_p), u64, ctypes.c_int]),
+                ("corpus_samples", u64, [vp, u64]),
+                ("corpus_rate", ctypes.c_uint32, [vp, u64]),
+                ("corpus_error", u64, [vp, u64, ctypes.c_char_p, u64]),
+                ("corpus_copy", None, [vp, u64, ctypes.POINTER(ctypes.c_float)]),
+                ("corpus_free", None, [vp]),
+            ):
+                getattr(lib, name).restype = res
+                getattr(lib, name).argtypes = args
+            _corpus_lib = lib
+        return _corpus_lib
+
+
+def load_corpus_mono(
+    paths: Sequence[str],
+    n_threads: Optional[int] = None,
+    force_python: bool = False,
+) -> List[Tuple[np.ndarray, int]]:
+    """Decode a corpus of audio files to mono float32, in parallel.
+
+    A C++ ``std::thread`` pool RIFF-parses, decodes and mono-mixes every
+    ``.wav`` at once (``wavloader.cpp``), bit-equal to
+    ``data/audio_io.read_audio`` and the channel mean.  Other files, and WAV
+    files the native decoder rejects, go through ``read_audio``, so a bad
+    file raises that function's own error.  ``force_python=True`` decodes
+    every file in Python.  Returns ``[(mono float32 (n,), rate), ...]`` in
+    input order.
+    """
+    from ddsp_tpu_torch.data.audio_io import read_audio
+
+    paths = list(paths)
+    results: List[Optional[Tuple[np.ndarray, int]]] = [None] * len(paths)
+    native = [] if force_python else [i for i, p in enumerate(paths)
+                                      if p.lower().endswith(".wav")]
+    if native:
+        lib = corpus_library()
+        names = (ctypes.c_char_p * len(native))(*[paths[i].encode() for i in native])
+        handle = lib.corpus_load(names, len(native), n_threads or os.cpu_count() or 2)
+        try:
+            for j, i in enumerate(native):
+                if lib.corpus_error(handle, j, None, 0):
+                    continue  # read_audio below raises its own error
+                out = np.empty(int(lib.corpus_samples(handle, j)), np.float32)
+                lib.corpus_copy(handle, j, _fptr(out))
+                results[i] = (out, int(lib.corpus_rate(handle, j)))
+        finally:
+            lib.corpus_free(handle)
+    for i, p in enumerate(paths):
+        if results[i] is None:
+            y, sr = read_audio(p)
+            y = y.mean(axis=0) if y.shape[0] > 1 else y[0]
+            results[i] = (np.ascontiguousarray(y, np.float32), sr)
+    return results  # type: ignore[return-value]

@@ -422,14 +422,11 @@ def parse_listen(listen: str) -> Address:
 
 def load_decoder(conf: Config, lightning_ckpt: str = "") -> Decoder:
     """The decoder to serve: from a Lightning ``.ckpt`` when given, else
-    from the newest ``step_*`` checkpoint the port's trainer wrote under
-    ``conf.checkpoint_dir``.  Orbax directories written by the JAX package
-    are refused (they are read by ``ddsp_tpu`` only)."""
+    from the newest ``step_*`` checkpoint under ``conf.checkpoint_dir``:
+    the port trainer's (``state.pt``) or the JAX package trainer's (Orbax,
+    read through ``tensorstore``, ``models/convert.decoder_from_orbax``)."""
     from ddsp_tpu_torch.models.convert import load_lightning_decoder
-    from ddsp_tpu_torch.training.trainer import (
-        latest_checkpoint,
-        load_checkpoint_payload,
-    )
+    from ddsp_tpu_torch.training.trainer import latest_checkpoint, load_checkpoint_decoder
 
     if lightning_ckpt:
         return load_lightning_decoder(lightning_ckpt, conf)
@@ -439,9 +436,7 @@ def load_decoder(conf: Config, lightning_ckpt: str = "") -> Decoder:
             f"no finalized checkpoint under {conf.checkpoint_dir!r} "
             "(pass --checkpoint_dir or --lightning_ckpt)"
         )
-    decoder = Decoder(conf)
-    decoder.load_state_dict(load_checkpoint_payload(ckpt)["params"])
-    return decoder.eval()
+    return load_checkpoint_decoder(ckpt, conf)
 
 
 def main(argv=None) -> None:

@@ -28,7 +28,9 @@ In the port:
   its metrics once;
 * checkpoints are ``step_%08d/state.pt`` directories written by
   ``torch.save`` into a temporary directory and renamed into place on one
-  background thread.  Orbax directories are read by the JAX package only.
+  background thread.  The decoder of a JAX-package Orbax ``step_*``
+  directory is read too (``load_checkpoint_decoder``); its optimizer state
+  is not, so training does not resume from one.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -58,7 +60,7 @@ from ddsp_tpu_torch.losses import (
     target_spectrograms,
 )
 from ddsp_tpu_torch.models.autoencoder import autoencoder_apply, autoencoder_init
-from ddsp_tpu_torch.models.controller import decoder_apply, decoder_init
+from ddsp_tpu_torch.models.controller import Decoder, decoder_apply, decoder_init
 from ddsp_tpu_torch.models.crepe import make_statistics_trainable
 from ddsp_tpu_torch.ops.fir import PRNGKey, fold_in, split
 
@@ -546,14 +548,37 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 
 def load_checkpoint_payload(path: str) -> Dict[str, Any]:
     """The saved state of a port checkpoint directory, as CPU tensors."""
+    from ddsp_tpu_torch.models.convert import is_orbax_checkpoint
+
     wait_for_checkpoints()  # same-process restore after an async save
     state_file = os.path.join(path, "state.pt")
     if not os.path.exists(state_file):
+        if is_orbax_checkpoint(path):
+            raise FileNotFoundError(
+                f"{path} is an Orbax checkpoint of the JAX package (ddsp_tpu): the "
+                "port reads its decoder parameters (load_checkpoint_decoder), not "
+                "its optimizer state, so training cannot resume from it")
         raise FileNotFoundError(
-            f"{path} holds no state.pt: not a ddsp_tpu_torch checkpoint (Orbax "
-            "checkpoint directories are read by the JAX package, ddsp_tpu, only)"
-        )
+            f"{path} holds no state.pt and no Orbax _METADATA / manifest.ocdbt: not "
+            "a checkpoint of ddsp_tpu_torch or of the JAX package")
     return torch.load(state_file, map_location="cpu", weights_only=True)
+
+
+def load_checkpoint_decoder(path: str, conf: Config) -> Decoder:
+    """The decoder of a ``step_*`` checkpoint directory: the port's own
+    (``state.pt``) or the JAX package's Orbax directory (through
+    ``tensorstore``, ``models/convert.decoder_from_orbax``).  A finetune
+    checkpoint gives its decoder.  Anything else raises."""
+    from ddsp_tpu_torch.models.convert import decoder_from_orbax, is_orbax_checkpoint
+
+    if not os.path.exists(os.path.join(path, "state.pt")) and is_orbax_checkpoint(path):
+        return decoder_from_orbax(path, conf)
+    params = load_checkpoint_payload(path)["params"]
+    if any(k.startswith("decoder.") for k in params):
+        params = {k[len("decoder."):]: v for k, v in params.items() if k.startswith("decoder.")}
+    decoder = Decoder(conf)
+    decoder.load_state_dict(params)
+    return decoder.eval()
 
 
 def restore_checkpoint(path: str, template: TrainState) -> TrainState:

@@ -32,7 +32,7 @@ on the power-STFT kernels (the default bf16 ``loss_matmul_dtype``).
   kernels have no operator above them; operations launched outside every
   range (the key split) are ``other``.
 
-Also: the frame and STFT kernels' launches per step from their own
+Also: every hand kernel's launches per step, from the wrappers'
 counters.
 Prints one JSON line and, given ``--out``, writes it to that file.
 Needs a CUDA device.
@@ -50,6 +50,8 @@ import time
 import numpy as np
 import torch
 from torch.autograd import DeviceType
+
+from ddsp_tpu_torch.ops.cuda import launch_counts
 
 STAGES = ("encoder", "controller", "oscillator_bank", "filtered_noise", "reverb",
           "loss", "backward", "optimizer")
@@ -79,19 +81,6 @@ def _device_ops(prof):
     return events, ops, launches
 
 
-def _counts():
-    from ddsp_tpu_torch.ops.cuda import osc_frames, stft
-
-    return {
-        "osc_frames_fwd": osc_frames.FWD_LAUNCHES,
-        "osc_frames_bwd": osc_frames.BWD_LAUNCHES,
-        "osc_frames_overlap_add": osc_frames.OVERLAP_LAUNCHES,
-        "stft_power_fwd": stft.FWD_LAUNCHES,
-        "stft_power_bwd": stft.BWD_LAUNCHES,
-        "stft_power_bwd_recompute": stft.BWD_RECOMPUTE_LAUNCHES,
-    }
-
-
 def profile(steps: int, batch_size: int, seed: int = 0, stft_impl: str = "auto",
             finetune: bool = False) -> dict:
     from ddsp_tpu_torch.config import Config
@@ -117,13 +106,14 @@ def profile(steps: int, batch_size: int, seed: int = 0, stft_impl: str = "auto",
     torch.cuda.synchronize()
 
     wall = []
-    before = _counts()
+    before = launch_counts()
     for _ in range(steps):
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         wall.append(1e3 * (time.perf_counter() - t0))
-    per_step = {f"{k}_launches_per_step": (v - before[k]) / steps for k, v in _counts().items()}
+    per_step = {f"{k}_launches_per_step": (v - before[k]) / steps
+                for k, v in launch_counts().items()}
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import ddsp_tpu_torch
+from ddsp_tpu_torch import reconstruct
 from ddsp_tpu_torch.config import Config
 from ddsp_tpu_torch.models.controller import decoder_init
 from ddsp_tpu_torch.models.crepe import crepe_init
@@ -59,6 +60,11 @@ REALTIME_MODULES = (
     "ddsp_tpu_torch.runtime.jack_io", "ddsp_tpu_torch.runtime.streaming",
     "ddsp_tpu_torch.ops", "ddsp_tpu_torch.models",
 )
+# the offline reconstruction slice's modules
+RECONSTRUCT_MODULES = (
+    "ddsp_tpu_torch.reconstruct", "ddsp_tpu_torch.models.lightning_export",
+    "ddsp_tpu_torch.models.crepe", "ddsp_tpu_torch.data.audio_io",
+)
 
 
 def _banned(name: str) -> bool:
@@ -95,6 +101,7 @@ def test_every_module_imports_without_jax():
     assert set(VARIANT_MODULES) <= set(names)
     assert set(CT_CONV_MODULES) <= set(names)
     assert set(REALTIME_MODULES) <= set(names)
+    assert set(RECONSTRUCT_MODULES) <= set(names)
     assert loaded == "", f"port imports pulled in {loaded}"
 
 
@@ -110,10 +117,11 @@ def test_realtime_imports_build_nothing():
         subprocess.run = subprocess.Popen = refuse
         import ddsp_tpu_torch.native as native
         import ddsp_tpu_torch.runtime.threaded, ddsp_tpu_torch.runtime.jack_io
+        import ddsp_tpu_torch.reconstruct, ddsp_tpu_torch.data.dataset
         from ddsp_tpu_torch.models import oscillator_live
         from ddsp_tpu_torch.ops import upsample_linear
         from ddsp_tpu_torch.ops.cuda import build
-        assert native._lib is None and not build._libs
+        assert native._lib is None and native._corpus_lib is None and not build._libs
         print("ok")
         """
     )
@@ -171,7 +179,8 @@ def _features(conf, n=4):
 @pytest.mark.parametrize("entry", [
     "multistream", "stream_server", "cli", "block_synth", "threaded", "loopback",
     "fit", "init_state", "extract_features", "train_cli",
-    "finetune", "init_finetune_state", "finetune_cli",
+    "finetune", "init_finetune_state", "finetune_cli", "reconstruct_cli",
+    "reconstruct_file",
 ])
 def test_entry_points_raise_without_cuda(no_cuda, entry, tmp_path):
     params, crepe = decoder_init(CONF), crepe_init()
@@ -201,6 +210,12 @@ def test_entry_points_raise_without_cuda(no_cuda, entry, tmp_path):
                              1, params, crepe)
         elif entry == "init_finetune_state":
             trainer.init_finetune_state(PRNGKey(0), CONF)
+        elif entry == "reconstruct_cli":
+            reconstruct.main([str(tmp_path / "in.wav"), str(tmp_path / "out.wav"),
+                              "--lightning_ckpt=missing.ckpt"])
+        elif entry == "reconstruct_file":
+            reconstruct.reconstruct_file(str(tmp_path / "in.wav"), str(tmp_path / "out.wav"),
+                                         CONF, decoder=params)
         elif entry == "finetune_cli":
             train.main([f"--data_dir={tmp_path}", "--num_steps=1", "--finetune_crepe=1",
                         "--pitch_decode=weighted"])

@@ -1,15 +1,19 @@
 """The port's native host runtime (``ddsp_tpu_torch.native``): the SPSC ring
 buffer in its native and Python modes, as tests/test_native.py holds the
-JAX package's, and the PCM conversions bit-equal to ``ddsp_tpu.native``'s.
-A build that cannot run raises; it never falls back to the Python ring."""
+JAX package's, the PCM conversions bit-equal to ``ddsp_tpu.native``'s, and
+the parallel WAV corpus decoder bit-equal to ``ddsp_tpu.native``'s and to
+``read_wav``.  A build that cannot run raises; it never falls back to the
+Python ring or decoder."""
 
+import struct
 import threading
 
 import numpy as np
 import pytest
 
 from ddsp_tpu_torch import native
-from ddsp_tpu_torch.native import RingBuffer, f32_to_pcm16, pcm16_to_f32
+from ddsp_tpu_torch.data.audio_io import UnsupportedAudioFormat, read_wav
+from ddsp_tpu_torch.native import RingBuffer, f32_to_pcm16, load_corpus_mono, pcm16_to_f32
 
 
 @pytest.fixture(params=["native", "python"])
@@ -100,3 +104,98 @@ def test_failed_build_raises_and_never_falls_back(monkeypatch, tmp_path):
         f32_to_pcm16(np.zeros(4, np.float32))
     assert native._lib is None
     assert RingBuffer(16, force_python=True).capacity == 16  # the only way round
+
+
+def _write_test_wav(path, audio, rate, bits, fmt="pcm"):
+    """(channels, n) float audio as a WAV of ``bits`` (PCM, or IEEE float
+    with fmt 'f32' / 'f64'), interleaved (tests/test_native.py's writer)."""
+    ch = audio.shape[0]
+    inter = audio.T.reshape(-1)
+    if fmt == "f32":
+        raw, tag = inter.astype("<f4").tobytes(), 3
+    elif fmt == "f64":
+        raw, tag = inter.astype("<f8").tobytes(), 3
+    elif bits == 8:
+        raw, tag = (np.clip(inter, -1, 1) * 127 + 128).astype(np.uint8).tobytes(), 1
+    elif bits == 16:
+        raw, tag = np.clip(inter * 32768, -32768, 32767).astype("<i2").tobytes(), 1
+    elif bits == 24:
+        i32 = np.clip(inter * (1 << 23), -(1 << 23), (1 << 23) - 1).astype(np.int32)
+        b = np.zeros((len(i32), 3), np.uint8)
+        b[:, 0], b[:, 1], b[:, 2] = i32 & 0xFF, (i32 >> 8) & 0xFF, (i32 >> 16) & 0xFF
+        raw, tag = b.tobytes(), 1
+    else:
+        raw = np.clip(inter * (1 << 31), -(2**31), 2**31 - 1).astype("<i4").tobytes()
+        tag = 1
+    block = ch * bits // 8
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 36 + len(raw)) + b"WAVEfmt ")
+        f.write(struct.pack("<IHHIIHH", 16, tag, ch, rate, rate * block, block, bits))
+        f.write(b"data" + struct.pack("<I", len(raw)) + raw)
+
+
+@pytest.mark.parametrize(
+    "bits,fmt,ch",
+    [(8, "pcm", 1), (16, "pcm", 2), (24, "pcm", 1), (32, "pcm", 2),
+     (32, "f32", 2), (64, "f64", 1)],
+)
+def test_corpus_decoder_matches_jax_and_read_wav(tmp_path, bits, fmt, ch):
+    """Native decode + mono mix == the JAX package's native decoder == the
+    port's read_wav and channel mean, bit for bit."""
+    from ddsp_tpu import native as jax_native
+
+    rng = np.random.default_rng(bits + ch)
+    audio = (0.8 * rng.standard_normal((ch, 1000))).clip(-1, 0.999).astype(np.float32)
+    p = str(tmp_path / f"t{bits}{fmt}.wav")
+    _write_test_wav(p, audio, 22050, bits, fmt)
+    (got, sr), = load_corpus_mono([p])
+    (want, want_sr), = jax_native.load_corpus_mono([p])
+    wav, wav_sr = read_wav(p)
+    assert sr == want_sr == wav_sr == 22050 and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, wav.mean(axis=0) if ch > 1 else wav[0])
+    np.testing.assert_array_equal(got, load_corpus_mono([p], force_python=True)[0][0])
+
+
+def test_corpus_decoder_many_files_threaded(tmp_path):
+    """Twelve files of different lengths on 4 threads, in input order."""
+    rng = np.random.default_rng(0)
+    paths = []
+    for i in range(12):
+        p = str(tmp_path / f"f{i}.wav")
+        _write_test_wav(p, (0.5 * rng.standard_normal((1 + i % 2, 300 + 17 * i))
+                            ).astype(np.float32), 16000, 16)
+        paths.append(p)
+    got = load_corpus_mono(paths, n_threads=4)
+    ref = load_corpus_mono(paths, force_python=True)
+    assert [len(y) for y, _ in got] == [300 + 17 * i for i in range(12)]
+    for (ga, gr), (ra, rr) in zip(got, ref):
+        assert gr == rr == 16000
+        np.testing.assert_array_equal(ga, ra)
+
+
+def test_corpus_decoder_bad_file_raises_read_audio_error(tmp_path):
+    """A file the native decoder rejects goes to read_audio, whose own
+    error the caller sees."""
+    p = str(tmp_path / "bad.wav")
+    with open(p, "wb") as f:
+        f.write(b"not a wav at all")
+    with pytest.raises(UnsupportedAudioFormat, match="not a WAV file"):
+        load_corpus_mono([p])
+
+
+def test_corpus_failed_build_raises(monkeypatch, tmp_path):
+    bad = tmp_path / "wavloader.cpp"
+    bad.write_text("this is not C++ either\n")
+    monkeypatch.setattr(native, "CORPUS_SOURCE", bad)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_corpus_lib", None)
+    p = str(tmp_path / "a.wav")
+    _write_test_wav(p, np.zeros((1, 10), np.float32), 8000, 16)
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed on wavloader.cpp"):
+        load_corpus_mono([p])
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found: the native corpus decoder"):
+        load_corpus_mono([p])
+    assert native._corpus_lib is None
+    assert load_corpus_mono([p], force_python=True)[0][1] == 8000  # the only way round
