@@ -171,11 +171,37 @@ Phases, each of which must pass (any failure exits non-zero):
    ms and launches over one profiled call, printed; the card against the
    CPU's plain path on the file's first 4 s: f0 bins equal, loudness
    within 1e-5, audio > 100 dB.
+17. the parallel layer (``ddsp_tpu_torch.parallel``): one spawn of 8 gloo
+   ranks sharing ``cuda:0`` (``parallel.launch.run_ranks``, a hard time
+   limit; a rank that fails or hangs fails the phase) prints which
+   collectives gloo takes for CUDA tensors, then runs, on ranks 0..n-1,
+   ``render_long_audio`` on 4 time shards over phase 16's 60 s file's
+   features (T = 5,168) with phase 16's decoder, a 344-frame render whose
+   reverb halo spans two left shards, ``render_controls_tp`` at B = 16,
+   T = 172 on 4 and 8 model ranks (h_start 0/45/90/135; 180 harmonics
+   padded to 184, 23 a shard), ``render_controls_time_tp`` on 2 x 2 over
+   the file, and three ``make_parallel_train_step`` steps at full width,
+   global batch 16, on 2 and on 4 ranks; then a nccl world of one rank
+   runs the long render and one DP step.  Each render against the
+   unsharded card render > 70 dB, every rank's copy equal, K1 launched
+   once a rank on the rotation fill at that rank's h_start, and every
+   time shard but the first entering K1 at a nonzero phase; each DP step
+   against the single-card step from the same state (rank 0's parameters
+   and key before it) at phase 9's bf16 criterion, K2 and S1 once a step
+   on every rank, the replicas' state checksums bit-equal after the
+   steps (the free-running single-card steps printed beside, not judged:
+   Adam parts the two runs); K1 at the TP shard shape (B=16, T=172, hop
+   512, H=45, h_start 135) against its plain version > 90 dB and timed.
+   Wall ms per rank beside the unsharded run, printed with the card's
+   name and power limit: the ranks share one card, so they are not
+   scale-out figures.
 
 The line before the last is a JSON object describing each kernel (launches
 on its main path, the real-time path's launches of K5 and K1 as
 ``launches_realtime``, the reconstruction's K1 launches as
-``launches_reconstruct`` with its timing at that shape, agreement with its
+``launches_reconstruct`` with its timing at that shape, phase 17's
+launches of K1, K2 and S1 as ``launches_parallel`` and K1 at the TP
+shard shape as ``parallel_tp_shard``, agreement with its
 plain version, kernel, plain, bound and library times); the last line is
 ``{"ok": true, "device": {...}}``.
 Without CUDA the script exits non-zero and prints no result.  It imports
@@ -2364,6 +2390,415 @@ def phase_reconstruct(device):
 
 
 
+# --------------------------------------------------------------- phase 17
+# The parallel layer (ddsp_tpu_torch.parallel): one spawn of PAR_WORLD gloo
+# ranks sharing cuda:0 runs every case (each on ranks 0..n-1 of it), then
+# one nccl world of a single rank.  The features are phase 16's 60 s file's
+# (T = 5,168 frames, which divides by 4 and 8), the decoder its seeded one.
+PAR_WORLD = 8
+PAR_TIME_RANKS = 4
+# 4 shards of 86 frames = 44,032 samples, under the 44,100-sample IR: each
+# shard's reverb halo spans two left shards
+PAR_HALO_FRAMES = 344
+PAR_TP_BATCH, PAR_TP_FRAMES, PAR_TP_RANKS = 16, 172, (4, 8)
+PAR_DP_BATCH, PAR_DP_STEPS, PAR_DP_RANKS = 16, 3, (2, 4)
+# hard limits: one spawn, start-up included; a collective's wait for a peer
+PAR_SPAWN_S, PAR_GROUP_S = 420, 120
+# the sharded renders against the unsharded card render: the JAX suite's
+# floors (time 70 dB; TP 70 on 'pallas', the card's rotation fill)
+PAR_FLOOR_DB = 70.0
+
+
+def probe_gloo_cuda(dev) -> dict:
+    """{collective: 'ok' or its error} for a CUDA tensor on this gloo
+    group; every rank makes the same calls (send and recv are not tried:
+    the port does not use them)."""
+    import torch
+    import torch.distributed as dist
+
+    n, x = dist.get_world_size(), torch.ones(4, device=dev)
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(n)], x),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(n * 4, device=dev), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, device=dev), torch.ones(n * 4, device=dev)),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    return out
+
+
+def parallel_rank(rank, dev, job):
+    """One rank of phase 17: each case this rank is in, with its wall ms
+    (synchronised), K1's calls (h_start, fill, the first sample's phase)
+    and every hand kernel's launches, counted from 0 at the case's start."""
+    import torch
+
+    from ddsp_tpu_torch.config import Config
+    from ddsp_tpu_torch.models.convert import decoder_from_state_dict
+    from ddsp_tpu_torch.ops.cuda import launch_counts, osc_frames, reset_launch_counts
+    from ddsp_tpu_torch.ops.fir import PRNGKey
+    from ddsp_tpu_torch.parallel import mesh as pmesh, render, tp, train
+    from ddsp_tpu_torch.training import trainer
+
+    conf, out, k1 = Config(), {}, []
+    if job["probe"]:
+        out["gloo_cuda"] = probe_gloo_cuda(dev)
+    launch, opt_step = osc_frames.osc_frames_fwd, trainer.AdamPlateau.step
+
+    def recorded(phase, amps_pad, loud_pad, h_start=0, fill="exact", *args, **kwargs):
+        k1.append(dict(h_start=int(h_start), fill=fill, shape=list(amps_pad.shape),
+                       phase0=float(phase[0, 0, 0])))
+        return launch(phase, amps_pad, loud_pad, h_start, fill, *args, **kwargs)
+
+    def case(name, mesh, fn, gather=None):
+        """fn() on the mesh's ranks; ``gather`` assembles rank 0's copy."""
+        if mesh.coords is None:
+            return
+        k1.clear()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        local = fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        counts = {k: v for k, v in launch_counts().items() if v}
+        full = local if gather is None else gather(local)
+        out[name] = dict(wall_ms=wall, k1=list(k1), counts=counts,
+                         checksum=float(full.double().sum()),
+                         audio=full.cpu().numpy() if rank == 0 else None)
+        torch.cuda.empty_cache()
+
+    osc_frames.osc_frames_fwd = recorded
+    try:
+        decoder = decoder_from_state_dict(job["decoder"], conf)
+        key, feats = PRNGKey(conf.seed), job["features"]
+        for name, frames in (("long", None), ("halo", PAR_HALO_FRAMES)):
+            if job["nccl"] and name == "halo":
+                continue
+            n = 1 if job["nccl"] else PAR_TIME_RANKS
+            mesh = pmesh.make_mesh(n_time=n, ranks=range(n))
+            batch = {k: v[:, :frames] for k, v in feats.items()}
+            case(name, mesh, lambda m=mesh, b=batch: render.render_long_audio(
+                decoder, b, conf, m, key, device=dev), lambda x, m=mesh: pmesh.gather_time(x, m))
+        if not job["nccl"]:
+            for n in PAR_TP_RANKS:
+                mesh = tp.make_dp_tp_mesh(n_data=1, n_model=n, ranks=range(n))
+                case(f"tp{n}", mesh, lambda m=mesh: tp.render_controls_tp(
+                    decoder.reverb, job["tp_controls"], conf, m, key, device=dev))
+            mesh = tp.make_time_tp_mesh(2, 2, ranks=range(4))
+            case("time_tp", mesh, lambda: tp.render_controls_time_tp(
+                decoder.reverb, job["long_controls"], conf, mesh, key, device=dev),
+                lambda x: pmesh.gather_time(x, mesh))
+        for n in ((1,) if job["nccl"] else PAR_DP_RANKS):
+            mesh = pmesh.make_mesh(n_data=n, ranks=range(n))
+            if mesh.coords is None:
+                continue
+            grads = []
+
+            def recording(self, params, g, state, value):
+                grads.append([t.detach().double().cpu() for t in g])
+                return opt_step(self, params, g, state, value)
+
+            state = train.shard_state(trainer.init_state(PRNGKey(SEED), conf, device=dev), mesh)
+            step = train.make_parallel_train_step(conf, mesh, device=dev)
+            batch = train.shard_batch(job["dp_batch"], mesh, device=dev)
+            trainer.AdamPlateau.step = recording
+            try:
+                steps = []
+                for _ in range(1 if job["nccl"] else PAR_DP_STEPS):
+                    before = None if rank else dict(
+                        params={k: v.detach().cpu().clone()
+                                for k, v in state.params.state_dict().items()},
+                        rng=state.rng.cpu().clone())
+                    torch.cuda.synchronize()
+                    reset_launch_counts()
+                    t0 = time.perf_counter()
+                    state, m = step(state, batch)
+                    torch.cuda.synchronize()
+                    steps.append(dict(wall_ms=1e3 * (time.perf_counter() - t0),
+                                      metrics={k: float(v) for k, v in m.items()},
+                                      counts={k: v for k, v in launch_counts().items() if v},
+                                      before=before))
+            finally:
+                trainer.AdamPlateau.step = opt_step
+            out[f"dp{n}"] = dict(steps=steps, grads=grads if rank == 0 else None,
+                                 checksum=train.state_checksum(state).cpu().numpy())
+            del state, step, batch
+            torch.cuda.empty_cache()
+    finally:
+        osc_frames.osc_frames_fwd = launch
+    return out
+
+
+def single_step_grads(conf, batch_np, device, steps: int, starts=None):
+    """Single-card train steps on the whole batch: ``steps`` steps from
+    ``init_state(PRNGKey(SEED))``, or one step from each of ``starts``
+    ({'params': a decoder state dict, 'rng': the key}); [(metrics, the
+    gradients Adam took, wall ms)] per step, and the leaves' names."""
+    import torch
+
+    from ddsp_tpu_torch.ops.fir import PRNGKey
+    from ddsp_tpu_torch.training import trainer
+
+    opt_step, grads = trainer.AdamPlateau.step, []
+
+    def recording(self, params, g, state, value):
+        grads.append([t.detach().double().cpu() for t in g])
+        return opt_step(self, params, g, state, value)
+
+    state = trainer.init_state(PRNGKey(SEED), conf, device=device)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch_np.items()}
+    step, out = trainer.make_train_step(conf), []
+    trainer.AdamPlateau.step = recording
+    try:
+        for i in range(steps if starts is None else len(starts)):
+            if starts is not None:
+                state.params.load_state_dict(starts[i]["params"])
+                state = state._replace(rng=starts[i]["rng"].to(device))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            out.append(({k: float(v) for k, v in m.items()}, grads[-1],
+                        1e3 * (time.perf_counter() - t0)))
+    finally:
+        trainer.AdamPlateau.step = opt_step
+    names = [n for n, _ in state.params.named_parameters()]
+    return out, names
+
+
+def dp_distances(got_steps, got_grads, want, names):
+    """[(loss relative, grad_norm relative, worst leaf, its |diff| over its
+    norm, its criterion)] of each DP step against a single-card step."""
+    out = []
+    for s, g, (m_want, g_want, _) in zip(got_steps, got_grads, want):
+        leaf, crit, rel = worst_leaf(dict(zip(names, g)), dict(zip(names, g_want)), FT_GRAD_RTOL)
+        out.append((abs(s["metrics"]["loss"] - m_want["loss"]) / abs(m_want["loss"]),
+                    abs(s["metrics"]["grad_norm"] - m_want["grad_norm"]) / m_want["grad_norm"],
+                    leaf, rel, crit))
+    return out
+
+
+def check_dp(tag, dp, conf, batch_np, device, free, names):
+    """Each DP step against the single-card step from the same state (the
+    DP rank 0's parameters and key before it): phase 9's bf16 criterion on
+    the gradients, grad_norm within GRAD_RTOL, loss within FT_LOSS_RTOL.
+    The free-running single-card steps (``free``) are compared too, for
+    information: Adam turns float noise in near-zero gradients into +-lr
+    steps, so the two runs part from the second step on."""
+    same, _ = single_step_grads(conf, batch_np, device, 0, [s["before"] for s in dp["steps"]])
+    rows = []
+    for i, ((loss_rel, norm_rel, leaf, rel, crit),
+            (f_loss, f_norm, f_leaf, _, f_crit)) in enumerate(zip(
+            dp_distances(dp["steps"], dp["grads"], same, names),
+            dp_distances(dp["steps"], dp["grads"], free, names))):
+        log(f"[parallel] {tag} step {i + 1}, against the single card from the same state: "
+            f"loss {loss_rel:.3e} relative, grad_norm {norm_rel:.3e}; worst leaf {leaf}: "
+            f"{rel:.3e} of its norm, criterion {crit:.4f} (< 1 passes); against the "
+            f"free-running single card (not judged): loss {f_loss:.3e}, grad_norm "
+            f"{f_norm:.3e}, worst leaf {f_leaf} criterion {f_crit:.4f}")
+        require(loss_rel <= FT_LOSS_RTOL, f"{tag} step {i + 1} loss {loss_rel:.3e} relative")
+        require(norm_rel <= GRAD_RTOL, f"{tag} step {i + 1} grad_norm {norm_rel:.3e} relative")
+        require(crit < 1.0, f"{tag} step {i + 1} gradient of {leaf}: criterion {crit:.4f}")
+        rows.append(dict(loss_rel=loss_rel, grad_norm_rel=norm_rel, leaf=leaf, criterion=crit,
+                         free_loss_rel=f_loss, free_grad_norm_rel=f_norm, free_criterion=f_crit))
+    return rows
+
+
+def phase_parallel(device, smi: str):
+    """The parallel layer on the card: gloo ranks sharing cuda:0 run the
+    time-sharded long render, the harmonic-sharded renders, time x model
+    and the data-parallel steps, held against the unsharded card runs; a
+    nccl world of one rank runs the render and one DP step; K1 at the TP
+    shard shape against its plain version."""
+    import torch
+
+    from ddsp_tpu_torch.config import Config
+    from ddsp_tpu_torch.models.autoencoder import autoencoder_init, encode
+    from ddsp_tpu_torch.models.controller import controller_apply, decoder_apply
+    from ddsp_tpu_torch.models.synths import noise_apply, oscillator_apply, reverb_apply
+    from ddsp_tpu_torch.ops.cuda import osc_frames
+    from ddsp_tpu_torch.ops.fir import PRNGKey
+    from ddsp_tpu_torch.parallel.launch import run_ranks
+    from ddsp_tpu_torch.reconstruct import prepare_audio
+
+    conf = Config()
+    params = autoencoder_init(PRNGKey(FT_PARAM_SEED), conf)  # phase 16's decoder
+    decoder = params["decoder"]
+    with torch.no_grad():
+        decoder.reverb.wet.fill_(RECON_REVERB_WET)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "in.wav")
+        write_glide_wav(path, RECON_SECONDS, RECON_RATE, SEED + 16)
+        audio = torch.from_numpy(prepare_audio(path, conf)).to(device)
+    params.to(device)
+    with torch.no_grad():
+        f = encode(params, audio, conf)
+        feats = {k: f[k].float() for k in ("f0", "normalized_cents", "loudness")}
+        key = PRNGKey(conf.seed, device)
+        long_controls, _ = controller_apply(decoder.controller, feats)
+        tp_feats = {k: torch.from_numpy(v).to(device)
+                    for k, v in feature_batch(conf, PAR_TP_BATCH, SEED + 17).items()}
+        tp_controls, _ = controller_apply(decoder.controller, tp_feats)
+
+        def unsharded(ctl):
+            harm, _ = oscillator_apply(ctl, conf)
+            return reverb_apply(decoder.reverb, harm + noise_apply(ctl, conf, key), conf)
+
+        refs, ref_ms = {}, {}
+        for name, fn in (("long", lambda: decoder_apply(decoder, feats, conf, key)),
+                         ("halo", lambda: decoder_apply(
+                             decoder, {k: v[:, :PAR_HALO_FRAMES] for k, v in feats.items()},
+                             conf, key)),
+                         ("tp", lambda: unsharded(tp_controls)),
+                         ("time_tp", lambda: unsharded(long_controls))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            refs[name] = fn().cpu().numpy()
+            ref_ms[name] = 1e3 * (time.perf_counter() - t0)
+    t = feats["f0"].shape[1]
+    require(t % 8 == 0 and tp_feats["f0"].shape[1] == PAR_TP_FRAMES,
+            f"the file's {t} frames do not divide by 8, or the TP batch is not "
+            f"{PAR_TP_FRAMES} frames")
+    dp_conf = Config(batch_size=PAR_DP_BATCH)
+    dp_batch = feature_batch(dp_conf, PAR_DP_BATCH, SEED + 18)
+    single, names = single_step_grads(dp_conf, dp_batch, device, PAR_DP_STEPS)
+    job = dict(decoder={k: v.cpu() for k, v in decoder.state_dict().items()},
+               features={k: v.cpu().numpy() for k, v in feats.items()},
+               tp_controls={k: v.cpu().numpy() for k, v in tp_controls.items()},
+               long_controls={k: v.cpu().numpy() for k, v in long_controls.items()},
+               dp_batch=dp_batch, probe=True, nccl=False)
+    params.to("cpu")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(parallel_rank, PAR_WORLD, (job,), backend="gloo", device="cuda",
+                      timeout=PAR_SPAWN_S, group_timeout=PAR_GROUP_S)
+    spawn_s = time.perf_counter() - t0
+    log(f"[parallel] {PAR_WORLD} gloo ranks on cuda:0: {spawn_s:.1f} s for the spawn, start-up "
+        "included")
+    log(f"[parallel] gloo with CUDA tensors (torch {torch.__version__}): "
+        + ", ".join(f"{k} {v}" for k, v in ranks[0]["gloo_cuda"].items()))
+    t0 = time.perf_counter()
+    (nccl,) = run_ranks(parallel_rank, 1, (dict(job, probe=False, nccl=True),), backend="nccl",
+                        device="cuda", timeout=PAR_SPAWN_S, group_timeout=PAR_GROUP_S)
+    nccl_s = time.perf_counter() - t0
+    log(f"[parallel] the nccl world of one rank: {nccl_s:.1f} s, start-up included")
+    note = f"{smi}; the ranks share one card, so these are not scale-out figures"
+    result = dict(spawn_s=spawn_s, nccl_s=nccl_s, gloo_cuda=ranks[0]["gloo_cuda"], cases={})
+    k1_rot = osc_frames.variant_name("osc_frames_fwd", "rot")
+
+    def check_render(tag, name, ref, n, world, expect_h):
+        """Case ``name`` of ``world``'s ranks 0..n-1 against the unsharded
+        card render ``ref``: its SNR, one K1 launch a rank on the rotation
+        fill at that rank's h_start, every rank's copy the same."""
+        got = world[0][name]["audio"]
+        db = snr_db(refs[ref], got)
+        walls = [round(r[name]["wall_ms"], 3) for r in world[:n]]
+        starts = [[c["h_start"] for c in r[name]["k1"]] for r in world[:n]]
+        log(f"[parallel] {tag} on {n} rank(s): vs the unsharded card render {db:.2f} dB "
+            f"(> {PAR_FLOOR_DB}); K1 h_start by rank {starts}; wall ms by rank {walls}, "
+            f"unsharded {ref_ms[ref]:.3f} ms; {note}")
+        require(got.shape == refs[ref].shape and np.isfinite(got).all(),
+                f"{tag}: {got.shape} not {refs[ref].shape}, or not finite")
+        require(db > PAR_FLOOR_DB, f"{tag} vs the unsharded card render {db:.2f} dB")
+        for r, rank in enumerate(world[:n]):
+            c = rank[name]
+            require(c["counts"].get("osc_frames_fwd") == 1 and len(c["k1"]) == 1
+                    and c["k1"][0]["fill"] == "rot" and c["k1"][0]["h_start"] == expect_h(r),
+                    f"{tag} rank {r}: K1 calls {c['k1']}, launches {c['counts']}")
+            require(c["checksum"] == world[0][name]["checksum"],
+                    f"{tag}: rank {r}'s copy differs from rank 0's")
+        result["cases"][tag] = dict(snr_db=db, ranks=n, wall_ms=walls, unsharded_ms=ref_ms[ref],
+                                    h_start=starts,
+                                    phase0=[r[name]["k1"][0]["phase0"] for r in world[:n]])
+
+    check_render("long", "long", "long", PAR_TIME_RANKS, ranks, lambda r: 0)
+    carried = result["cases"]["long"]["phase0"]
+    log(f"[parallel] the phase entering each time shard's K1 (cycles): {carried}")
+    require(all(p != 0.0 for p in carried[1:]), "a time shard's K1 started from phase 0")
+    check_render("halo", "halo", "halo", PAR_TIME_RANKS, ranks, lambda r: 0)
+    for n in PAR_TP_RANKS:
+        h_local = -(-conf.n_harmonics // n)
+        check_render(f"tp{n}", f"tp{n}", "tp", n, ranks, lambda r, h=h_local: r * h)
+    check_render("time_tp", "time_tp", "time_tp", 4, ranks,
+                 lambda r: (r % 2) * (conf.n_harmonics // 2))
+    check_render("nccl_long", "long", "long", 1, [nccl], lambda r: 0)
+
+    launches = {"osc_frames_fwd": 0, "osc_frames_bwd": 0, "ct_conv_dsignal": 0}
+    for n in PAR_DP_RANKS:
+        dp = [r[f"dp{n}"] for r in ranks[:n]]
+        for r, d in enumerate(dp):
+            require(np.array_equal(d["checksum"], dp[0]["checksum"]),
+                    f"dp{n}: rank {r}'s state differs from rank 0's after the steps")
+            for i, s in enumerate(d["steps"]):
+                c = s["counts"]
+                require(c.get("osc_frames_bwd") == 1 and c.get("ct_conv_dsignal") == 1,
+                        f"dp{n} rank {r} step {i + 1}: launches {c}")
+                for k in launches:
+                    launches[k] += c.get(k, 0)
+        walls = [[round(s["wall_ms"], 3) for s in d["steps"]] for d in dp]
+        log(f"[parallel] dp{n}: {PAR_DP_STEPS} steps at global batch {PAR_DP_BATCH}; replicas' "
+            f"state checksums bit-equal; K2 and S1 once a step on every rank; wall ms a step "
+            f"by rank {walls}, single card {[round(s[2], 3) for s in single]}; {note}")
+        result["cases"][f"dp{n}"] = dict(
+            steps=check_dp(f"dp{n}", dp[0], dp_conf, dp_batch, device, single, names),
+            wall_ms=walls, single_ms=[s[2] for s in single])
+    nd = nccl["dp1"]
+    require(nd["steps"][0]["counts"].get("osc_frames_bwd") == 1
+            and nd["steps"][0]["counts"].get("ct_conv_dsignal") == 1,
+            f"nccl dp step launches {nd['steps'][0]['counts']}")
+    result["cases"]["nccl_dp1"] = dict(
+        steps=check_dp("nccl dp1", nd, dp_conf, dp_batch, device, single, names),
+        wall_ms=[nd["steps"][0]["wall_ms"]])
+    renders = ("long", "halo", "tp4", "tp8", "time_tp")
+    k1_launches = sum(r[c]["counts"].get("osc_frames_fwd", 0)
+                      for r in ranks + [nccl] for c in r if c in renders)
+    for k in launches:
+        launches[k] += nd["steps"][0]["counts"].get(k, 0)
+    result["launches"] = dict(launches, osc_frames_fwd_renders=k1_launches)
+
+    # K1 at the TP shard shape (B=16, T=172, hop 512, H=45, h_start 135):
+    # the last quarter of a bank normalised over all its harmonics, as
+    # render_controls_tp hands it to K1
+    b, hop, h = PAR_TP_BATCH, conf.hop_length, conf.n_harmonics // 4
+    h0 = conf.n_harmonics - h
+    phase, amps, loud, _ = frame_operands(b, PAR_TP_FRAMES, hop, conf.n_harmonics, 0, device,
+                                          seed=h0)
+    amps = amps[..., h0:].contiguous()
+    with torch.no_grad():
+        got = osc_frames.osc_frames_fwd(phase, amps, loud, h0, fill="rot")
+        want = osc_frames.render_from_phase_variant_plain(phase, amps, loud, h0, "rot")
+        torch.cuda.synchronize()
+        db = snr_db(want.cpu().numpy(), got.cpu().numpy())
+        err = float((got - want).abs().max())
+        ms = cuda_ms(lambda: osc_frames.osc_frames_fwd(phase, amps, loud, h0, fill="rot"), 50)
+        plain_ms = cuda_ms(lambda: osc_frames.render_from_phase_variant_plain(
+            phase, amps, loud, h0, "rot"), 5, warmup=1)
+    bound_ms, bound_by = frame_bounds_ms(b, PAR_TP_FRAMES, hop, h)[0]
+    log(f"[parallel] K1 at the TP shard shape (B={b}, T={PAR_TP_FRAMES}, hop {hop}, H={h}, "
+        f"h_start {h0}, rot): vs plain {db:.2f} dB (> {KERNEL_SNR_FLOOR_DB}), max |err| "
+        f"{err:.3e}; {ms:.5f} ms a call, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
+        f"({bound_by}); {smi}")
+    require(db > KERNEL_SNR_FLOOR_DB, f"K1 at the TP shard shape vs plain {db:.2f} dB")
+    result["k1_tp_shard"] = dict(shape=[b, PAR_TP_FRAMES, hop, h, h0], snr_db=db,
+                                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by)
+    log(f"[parallel] hand-kernel launches on the ranks: {result['launches']}")
+    return result
+
+
 def timed_phase(phase: int, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2423,6 +2858,7 @@ def main() -> int:
     realtime = timed(14, phase_realtime, device)
     timed(15, phase_precision, device)
     recon = timed(16, phase_reconstruct, device)
+    par = timed(17, phase_parallel, device, smi)
 
     no_library = ("null: no single PyTorch call computes a harmonic sine-bank render or its "
                   "gradient; the nearest is the plain version")
@@ -2445,6 +2881,11 @@ def main() -> int:
     k1["launches_realtime"] = realtime["live"]["launches"]
     k1["launches_reconstruct"] = recon["launches"]
     k1["reconstruct_shape"] = recon["k1"]
+    k1["launches_parallel"] = {"renders": par["launches"]["osc_frames_fwd_renders"],
+                               "dp_steps": par["launches"]["osc_frames_fwd"]}
+    k1["parallel_tp_shard"] = par["k1_tp_shard"]
+    k2 = next(k for k in kernels if k["name"] == "osc_frames_bwd")
+    k2["launches_parallel"] = par["launches"]["osc_frames_bwd"]
     kernels.append(dict(
         name="osc_frames_overlap_add", route="cuda", source="ddsp_tpu_torch/csrc/osc_frames.cu",
         replaces="ddsp_tpu/ops/pallas/oscillator.py:777", tpu_function="_kernel_banked2_bwd "
@@ -2481,7 +2922,7 @@ def main() -> int:
         launches=train_launches["ct_conv_dsignal"],
         launches_finetune_cli=ft_launches["ct_conv_dsignal"],
         library="torch.fft.irfft(torch.fft.rfft(g) * conj(H)): the float32 cuFFT correlation",
-        **s1["ct_conv_dsignal"]))
+        launches_parallel=par["launches"]["ct_conv_dsignal"], **s1["ct_conv_dsignal"]))
     for name, entry in variants.items():
         if name in ("osc_frames_fwd", "osc_frames_bwd"):
             continue  # the default K1/K2: their entries above

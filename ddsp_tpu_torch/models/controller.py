@@ -125,12 +125,15 @@ def decoder_apply(
     conf: Config,
     noise_key: torch.Tensor,
     frame_chunk: Optional[int] = None,
+    noise_row_offset: int = 0,
 ) -> torch.Tensor:
     """Full offline decode: controls -> harmonics + noise -> reverb.
 
     The reference Decoder.forward (decoder.py:127-135).  ``batch`` holds
     {'normalized_cents', 'loudness', 'f0'}, each (B, T, 1); ``noise_key``
-    is a (2,) threefry key.  Returns (B, T*hop) audio.
+    is a (2,) threefry key; ``noise_row_offset`` is the first row's index
+    in the whole batch, whose row keys the noise takes (a data-parallel
+    rank's rows, ``parallel/train.py``).  Returns (B, T*hop) audio.
     """
     with record_function("controller"):
         controls, _ = controller_apply(params.controller, batch,
@@ -138,7 +141,7 @@ def decoder_apply(
     with record_function("oscillator_bank"):
         harm, _ = oscillator_apply(controls, conf, frame_chunk=frame_chunk)
     with record_function("filtered_noise"):
-        noise = noise_apply(controls, conf, noise_key)
+        noise = noise_apply(controls, conf, noise_key, noise_row_offset)
     with record_function("reverb"):
         return reverb_apply(params.reverb, harm + noise, conf)
 

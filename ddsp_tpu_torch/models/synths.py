@@ -104,9 +104,11 @@ def oscillator_live(
     )
 
 
-def noise_apply(controls: dict, conf: Config, key: torch.Tensor) -> torch.Tensor:
-    """Filtered-noise branch from a controls dict {H}: (B, T*hop) audio."""
-    return filtered_noise(controls["H"], key, conf.hop_length)
+def noise_apply(controls: dict, conf: Config, key: torch.Tensor,
+                row_offset: int = 0) -> torch.Tensor:
+    """Filtered-noise branch from a controls dict {H}: (B, T*hop) audio;
+    the rows are rows ``row_offset + [0, B)`` of the batch (``ops/fir.frame_noise``)."""
+    return filtered_noise(controls["H"], key, conf.hop_length, row_offset=row_offset)
 
 
 class Reverb(nn.Module):

@@ -130,14 +130,17 @@ def frame_noise(
     block_size: int,
     frame_offset=0,
     dtype=torch.float32,
+    row_offset: int = 0,
 ) -> torch.Tensor:
     """(B, n_frames, block_size) uniform noise in [-1, 1).
 
-    Row b uses the key ``fold_in(key, b)`` over the absolute samples
-    ``frame_offset * block_size + [0, n_frames * block_size)``, so a
-    stream rendered block by block draws the same noise as an offline
-    render.  Counters wrap at 2^32 samples (~27 hours at 44.1 kHz)."""
-    row_keys = fold_in(key, torch.arange(batch, device=key.device))
+    Row b uses the key ``fold_in(key, row_offset + b)`` over the absolute
+    samples ``frame_offset * block_size + [0, n_frames * block_size)``, so
+    a stream rendered block by block draws the same noise as an offline
+    render, and rows ``row_offset + [0, B)`` of a larger batch (a
+    data-parallel rank's) draw what those rows draw in the whole batch.
+    Counters wrap at 2^32 samples (~27 hours at 44.1 kHz)."""
+    row_keys = fold_in(key, row_offset + torch.arange(batch, device=key.device))
     n = n_frames * block_size
     start = torch.as_tensor(frame_offset, dtype=torch.int64,
                             device=key.device) * block_size
@@ -332,14 +335,17 @@ def filtered_noise(
     key: torch.Tensor,
     block_size: int,
     frame_offset=0,
+    row_offset: int = 0,
 ) -> torch.Tensor:
     """Time-varying FIR-filtered uniform noise, (B, T*block_size).
 
     Args:
       filter_mags: (B, T, n_filters) per-frame magnitude responses.
       block_size: samples per frame (= hop length).
+      frame_offset, row_offset: this block's first frame and row in the
+        whole render (:func:`frame_noise`).
     """
     b, t, _ = filter_mags.shape
     noise = frame_noise(key, b, t, block_size, frame_offset,
-                        filter_mags.dtype)
+                        filter_mags.dtype, row_offset)
     return convolve_designed_fir(filter_mags, noise)

@@ -50,6 +50,7 @@ def nyquist_normalized_amps(
     sample_rate: int,
     *,
     h_start: int = 0,
+    normalize: bool = True,
 ) -> torch.Tensor:
     """Zero amplitudes of harmonics above Nyquist, renormalise to sum 1.
 
@@ -61,11 +62,14 @@ def nyquist_normalized_amps(
       harm_amps: (..., H) harmonic amplitude distribution.
       h_start: ``harm_amps[..., i]`` belongs to harmonic ``h_start + i + 1``
         (a slice of the bank).
+      normalize: False returns the masked amplitudes undivided, for a
+        caller that divides by a sum over every slice of the bank
+        (``parallel/tp.py``).
     """
     n_harmonics = harm_amps.shape[-1]
     h = torch.arange(1, n_harmonics + 1, dtype=f0.dtype, device=f0.device) + h_start
     amps = torch.where((f0 * h) > (sample_rate // 2), 0.0, harm_amps)
-    return amps / amps.sum(dim=-1, keepdim=True)
+    return amps / amps.sum(dim=-1, keepdim=True) if normalize else amps
 
 
 def _fundamental_phase_cycles(

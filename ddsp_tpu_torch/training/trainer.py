@@ -254,14 +254,17 @@ def loss_fn(
     return loss, scales
 
 
-def make_train_step(conf: Config, loss=None):
+def make_train_step(conf: Config, loss=None, reduce=None):
     """(state, batch) -> (state, metrics): one optimizer step.
 
     ``loss`` defaults to :func:`loss_fn`; the finetune step passes
     :func:`loss_fn_e2e` and reuses this optimizer and metrics plumbing.
-    ``metrics`` holds ``loss``, the per-scale ``mss_*`` terms and
-    ``grad_norm``, as device tensors.  The parameters are updated in
-    place; the returned state carries step + 1 and the advanced key.
+    ``reduce``, if given, maps (loss, per-scale terms, gradients) to the
+    values the optimizer and the metrics take: the data-parallel step's
+    all-reduce (``parallel/train.py``).  ``metrics`` holds ``loss``, the
+    per-scale ``mss_*`` terms and ``grad_norm``, as device tensors.  The
+    parameters are updated in place; the returned state carries step + 1
+    and the advanced key.
     """
     opt = make_optimizer(conf)
     loss = loss_fn if loss is None else loss
@@ -273,6 +276,9 @@ def make_train_step(conf: Config, loss=None):
         with record_function("backward"):
             grads = torch.autograd.grad(loss_val, params, allow_unused=True)
             grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+        if reduce is not None:
+            with record_function("all_reduce"):
+                loss_val, scales, grads = reduce(loss_val.detach(), scales, grads)
         with record_function("optimizer"):
             opt_state = opt.step(params, grads, state.opt_state, loss_val.detach())
             metrics = {k: v.detach() for k, v in scales.items()}

@@ -24,6 +24,10 @@ from ddsp_tpu_torch.models.controller import decoder_init
 from ddsp_tpu_torch.models.crepe import crepe_init
 from ddsp_tpu_torch.data import dataset
 from ddsp_tpu_torch.ops.fir import PRNGKey
+from ddsp_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+from ddsp_tpu_torch.parallel.render import render_long_audio
+from ddsp_tpu_torch.parallel.tp import decoder_apply_tp, make_dp_tp_mesh, render_controls_tp
+from ddsp_tpu_torch.parallel.train import make_parallel_train_step, shard_batch, shard_state
 from ddsp_tpu_torch.runtime import server
 from ddsp_tpu_torch.data.audio_io import write_wav
 from ddsp_tpu_torch.runtime.jack_io import run_file_loopback
@@ -59,6 +63,13 @@ REALTIME_MODULES = (
     "ddsp_tpu_torch.native", "ddsp_tpu_torch.runtime.threaded",
     "ddsp_tpu_torch.runtime.jack_io", "ddsp_tpu_torch.runtime.streaming",
     "ddsp_tpu_torch.ops", "ddsp_tpu_torch.models",
+)
+# the parallel layer's modules
+PARALLEL_MODULES = (
+    "ddsp_tpu_torch.parallel", "ddsp_tpu_torch.parallel.mesh",
+    "ddsp_tpu_torch.parallel.collectives", "ddsp_tpu_torch.parallel.render",
+    "ddsp_tpu_torch.parallel.tp", "ddsp_tpu_torch.parallel.train",
+    "ddsp_tpu_torch.parallel.launch",
 )
 # the offline reconstruction slice's modules
 RECONSTRUCT_MODULES = (
@@ -102,6 +113,7 @@ def test_every_module_imports_without_jax():
     assert set(CT_CONV_MODULES) <= set(names)
     assert set(REALTIME_MODULES) <= set(names)
     assert set(RECONSTRUCT_MODULES) <= set(names)
+    assert set(PARALLEL_MODULES) <= set(names)
     assert loaded == "", f"port imports pulled in {loaded}"
 
 
@@ -180,7 +192,8 @@ def _features(conf, n=4):
     "multistream", "stream_server", "cli", "block_synth", "threaded", "loopback",
     "fit", "init_state", "extract_features", "train_cli",
     "finetune", "init_finetune_state", "finetune_cli", "reconstruct_cli",
-    "reconstruct_file",
+    "reconstruct_file", "initialize_distributed", "render_long_audio", "render_controls_tp",
+    "make_parallel_train_step",
 ])
 def test_entry_points_raise_without_cuda(no_cuda, entry, tmp_path):
     params, crepe = decoder_init(CONF), crepe_init()
@@ -216,6 +229,14 @@ def test_entry_points_raise_without_cuda(no_cuda, entry, tmp_path):
         elif entry == "reconstruct_file":
             reconstruct.reconstruct_file(str(tmp_path / "in.wav"), str(tmp_path / "out.wav"),
                                          CONF, decoder=params)
+        elif entry == "initialize_distributed":
+            initialize_distributed(f"file://{tmp_path / 'store'}", 1, 0)
+        elif entry == "render_long_audio":
+            render_long_audio(params, _features(CONF), CONF, None, PRNGKey(0))
+        elif entry == "render_controls_tp":
+            render_controls_tp(params.reverb, {}, CONF, None, PRNGKey(0))
+        elif entry == "make_parallel_train_step":
+            make_parallel_train_step(CONF, None)
         elif entry == "finetune_cli":
             train.main([f"--data_dir={tmp_path}", "--num_steps=1", "--finetune_crepe=1",
                         "--pitch_decode=weighted"])
@@ -241,3 +262,49 @@ def test_explicit_cpu_runs(no_cuda):
     ft, metrics = trainer.finetune(conf, _features(conf)["audio"], 1, ft.params["decoder"],
                                    ft.params["crepe"], device="cpu")
     assert ft.step == 1 and np.isfinite(metrics["loss"])
+
+
+def test_parallel_entry_points_run_on_explicit_cpu(no_cuda, tmp_path):
+    """A world of one rank on gloo: the parallel entry points run where the
+    CPU is asked for, and the backend follows the device."""
+    import torch.distributed as dist
+
+    conf = CONF.replace(batch_size=2, example_duration=0.2, mss_ffts=(128, 64))
+    try:
+        dev = initialize_distributed(f"file://{tmp_path / 'store'}", 1, 0, device="cpu")
+        assert dev.type == "cpu" and dist.get_backend() == "gloo"
+        params = decoder_init(conf)
+        feats = _features(conf, n=2)
+        audio = render_long_audio(params, feats, conf, make_mesh(n_time=1), PRNGKey(0),
+                                  device="cpu")
+        assert audio.shape == (2, conf.example_length) and torch.isfinite(audio).all()
+        controls, _ = params.controller({k: torch.from_numpy(v) for k, v in feats.items()})
+        tp_audio = render_controls_tp(params.reverb, controls, conf, make_dp_tp_mesh(1, 1),
+                                      PRNGKey(0), device="cpu")
+        assert torch.allclose(tp_audio, audio, rtol=0, atol=1e-5)
+        decoded = decoder_apply_tp(params, feats, conf, make_dp_tp_mesh(1, 1), PRNGKey(0),
+                                   device="cpu")
+        assert torch.equal(decoded, tp_audio)
+        mesh = make_mesh(n_data=1)
+        state = shard_state(trainer.init_state(PRNGKey(0), conf, device="cpu"), mesh)
+        step = make_parallel_train_step(conf, mesh, device="cpu")
+        state, metrics = step(state, shard_batch(feats, mesh, device="cpu"))
+        assert state.step == 1 and torch.isfinite(metrics["loss"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_initialize_distributed_keeps_only_a_group_of_the_asked_backend(tmp_path):
+    """An existing group is kept when its backend is the one asked for, and
+    asking for another backend raises instead of running on the old one."""
+    import torch.distributed as dist
+
+    try:
+        dev = initialize_distributed(f"file://{tmp_path / 'store'}", 1, 0, device="cpu")
+        assert initialize_distributed(device="cpu") == dev and dist.get_backend() == "gloo"
+        with pytest.raises(ValueError, match="a gloo process group exists"):
+            initialize_distributed(backend="ucc", device="cpu")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -18,8 +18,8 @@ Tolerances (CPU; each set a few times the gap measured on its inputs):
   port's gradient at ``compute_dtype='float32'``, against the same JAX
   bf16 gradient): loss within 1e-5 relative (measured 1.2e-6; the
   control 3.5e-4); the whole gradient within 6e-3 of its norm (measured
-  3.46e-3, 3.6e-3 before the backward followed XLA's rounding points; the
-  control 1.01e-2, which the test requires above the limit); every leaf
+  2.15e-3; 3.46e-3 before the leaky ReLU took JAX's derivative at 0, 3.6e-3
+  before the backward followed XLA's rounding points; the control 1.01e-2, which the test requires above the limit); every leaf
   nearer JAX's than the control (measured at most 0.80 of the control's
   distance, ``mlp_gru``'s second bias) and within 3e-2 of its norm
   (measured 1.51e-2 at worst, ``mlp_loudness``'s first bias).  The
@@ -29,7 +29,7 @@ Tolerances (CPU; each set a few times the gap measured on its inputs):
   rounding is what keeps the MLP leaves 2e-3-1.5e-2 from JAX's (the MLP
   test below holds the rest bit for bit; ROADMAP.md §3, open fault 1).
   ``make_train_step``'s loss and grad_norm (the trainer reads the field)
-  within 1e-5 and 3e-4 relative (measured 1.2e-6 and 7.2e-5; the control
+  within 1e-5 and 3e-4 relative (measured 1.2e-6 and 7.3e-5; the control
   4.3e-3 for grad_norm).
 * a two-layer bf16 MLP's backward alone against JAX's jitted VJP of
   ``mlp_apply`` on the same input and cotangent: with the backward's sums
@@ -245,6 +245,76 @@ def test_bf16_mlp_backward_matches_jax_compiled_vjp(decoders, sums, monkeypatch)
     distances = _mlp_vjp_distances(decoders)
     for group, tol in VJP_TOLERANCES[sums].items():
         assert max(distances[group]) <= tol, (group, distances[group], tol)
+
+
+def _controller_vjp_distances(decoders):
+    """(whole, worst leaf): the bf16 controller's gradients from a seeded
+    cotangent on its controls, against JAX's jitted VJP of
+    ``controller_apply``, relative to the norms, with the backward's sums
+    of bf16 values done as XLA's CPU backend does them."""
+    from ddsp_tpu.models import controller as jax_controller
+
+    params, decoder = decoders
+    conf = Config(**TINY, compute_dtype="bfloat16")
+    batch = _batch(conf, 3)
+    del batch["audio"]
+    rng = np.random.default_rng(9)
+    t = conf.frames_per_example
+    ct = {k: rng.standard_normal((3, t, n)).astype(np.float32)
+          for k, n in (("c", conf.n_harmonics), ("a", 1), ("H", conf.n_noise_filters))}
+
+    def controls(p):
+        out, _ = jax_controller.controller_apply(p, batch, compute_dtype=jnp.bfloat16)
+        return {k: out[k] for k in ct}
+
+    want = jax.jit(lambda p, c: jax.vjp(controls, p)[1](c)[0])(params["controller"], ct)
+    model = copy.deepcopy(decoder)
+    out, _ = controller_apply(model.controller, {k: torch.from_numpy(v) for k, v in batch.items()},
+                              compute_dtype=torch.bfloat16)
+    torch.autograd.backward([out[k] for k in ct], [torch.from_numpy(v) for v in ct.values()])
+    grads = copy.deepcopy(model)
+    for g, p in zip(grads.parameters(), model.parameters()):
+        g.data = torch.zeros_like(p) if p.grad is None else p.grad  # the reverb's: None
+    got = jax.tree_util.tree_leaves(decoder_to_jax(grads)["controller"])
+    want = [np.asarray(w, np.float64) for w in jax.tree_util.tree_leaves(want)]
+    diff = [np.linalg.norm(w - g.astype(np.float64)) for w, g in zip(want, got)]
+    whole = np.sqrt(sum(d**2 for d in diff)) / np.sqrt(sum(np.sum(w**2) for w in want))
+    return whole, max(d / np.linalg.norm(w) for d, w in zip(diff, want))
+
+
+@pytest.mark.parametrize("derivative", ["jax", "torch"])
+def test_bf16_controller_backward_matches_jax_compiled_vjp(decoders, derivative, monkeypatch):
+    """The whole bf16 controller's backward (MLPs, GRU, heads) against JAX's
+    jitted VJP, with XLA's CPU sums: float32-close only with the leaky
+    ReLU's derivative at 0 taken as ``jax.nn.leaky_relu`` takes it (1).
+    'jax', the port's activation: whole 9.9e-8, worst leaf 4.3e-7 (limits
+    1e-6, 3e-6).  'torch', ``torch.nn.LeakyReLU`` (the slope at 0, the
+    port's activation before): whole 2.1e-2, worst leaf 3.9e-2, which the
+    test requires above 1e-3."""
+    from ddsp_tpu_torch.models import nn as port_nn
+
+    monkeypatch.setattr(port_nn, "_rounded_sum", _xla_cpu_sum)
+    if derivative == "torch":
+        monkeypatch.setattr(port_nn, "LeakyReLU", torch.nn.LeakyReLU)
+        decoders = (decoders[0], decoder_from_jax(
+            jax.tree_util.tree_map(np.asarray, decoders[0]),
+            Config(**TINY, compute_dtype="bfloat16")))
+    whole, worst = _controller_vjp_distances(decoders)
+    if derivative == "jax":
+        assert whole <= 1e-6 and worst <= 3e-6, (whole, worst)
+    else:
+        assert whole > 1e-3, whole
+
+
+def test_leaky_relu_derivative_at_zero_is_jaxs():
+    from ddsp_tpu_torch.models.nn import LeakyReLU
+
+    x = torch.tensor([-2.0, -0.0, 0.0, 3.0], requires_grad=True)
+    y = LeakyReLU(0.01)(x)
+    y.sum().backward()
+    want = jax.grad(lambda v: jax.nn.leaky_relu(v, 0.01).sum())(jnp.asarray(x.detach().numpy()))
+    np.testing.assert_array_equal(x.grad.numpy(), np.asarray(want))
+    assert torch.equal(y, torch.nn.functional.leaky_relu(x, 0.01))
 
 
 class _NoSave:
