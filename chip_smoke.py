@@ -195,6 +195,27 @@ Phases, each of which must pass (any failure exits non-zero):
    Wall ms per rank beside the unsharded run, printed with the card's
    name and power limit: the ranks share one card, so they are not
    scale-out figures.
+18. the spectrogram experiments at their full sizes.  Style transfer at
+   ``StyleTransferConfig()`` (n_fft 2048, hop 512, kernel 17, 4096
+   features, 44.1 kHz): a 3 s harmonic glide as content and
+   ``utils/gl_quality_curve.fixture_audio`` as style, 20 L-BFGS steps on
+   the zoom line search (after one untimed evaluation, cuDNN's first
+   call), each timed with its loss evaluations, stepsize and line-search
+   steps, and a 21st under the profiler (the card's busy ms and its
+   costliest kernels); the loss and the Gram distance must fall; the
+   card's extractor draw against the CPU's on its first 2^20 elements;
+   the first two steps on the CPU from the card's extractor, the iterate
+   within 1e-4 of its displacement, loss and stepsize within 1e-4
+   relative, line-search steps equal.  Then the 512-iteration Griffin-Lim
+   inversion of the result, timed a run and an iteration, its spectral
+   convergence printed; 8 iterations card vs CPU > 90 dB; and the
+   Griffin-Lim quality curve (64 ... 5000 iterations) on the fixture.
+   DeepDream on CREPE ``Config().crepe_capacity`` with seeded weights:
+   ``dream_file`` on a 4 s, 16 kHz WAV (63,488 samples after the
+   truncation) at the reference's 20 iterations, lr 10, layer 2; the
+   activation norm must rise; the first 3 iterations card vs CPU > 80 dB
+   (at this length lr 10 magnifies float noise to ~94 dB even between
+   two CPU runs) and the norm within 1e-5; ms an iteration printed.
 
 The line before the last is a JSON object describing each kernel (launches
 on its main path, the real-time path's launches of K5 and K1 as
@@ -2799,6 +2820,211 @@ def phase_parallel(device, smi: str):
     return result
 
 
+# --------------------------------------------------------------- phase 18
+
+ST_SECONDS = 3.0
+ST_STEPS = 20
+ST_CPU_STEPS = 2  # the CPU's steps at full width, from the card's extractor
+ST_ITER_RTOL = 1e-4  # card vs CPU: iterate error over the displacement
+ST_RTOL = 1e-4  # card vs CPU: loss and accepted stepsize, relative
+ST_DRAW_PREFIX = 1 << 20  # extractor elements drawn on both devices
+ST_DRAW_MAX_ULPS = 64
+GL_CPU_ITERS = 8
+GL_FLOOR_DB = 90.0
+DREAM_SECONDS, DREAM_RATE = 4.0, 16000
+DREAM_ITERS, DREAM_LR, DREAM_LAYER = 20, 10.0, 2
+DREAM_CPU_ITERS = 3
+# at 63,488 samples and lr 10 the ascent magnifies float noise: on the CPU
+# the port against itself with the input scaled by 1 + 1e-7 parts by 93.7
+# dB after 3 iterations (108.0 after 1 and 2), as the port against the
+# JAX package does (93.7 dB); an H100 against the CPU measured 91.83 dB
+DREAM_FLOOR_DB = 80.0
+DREAM_VALUE_RTOL = 1e-5
+
+
+def glide_audio(sr: int, seconds: float) -> np.ndarray:
+    """A harmonic glide, 110 -> 440 Hz over ``seconds``, 8 harmonics at
+    1/h, peak 0.5: the style transfer's content."""
+    t = np.arange(int(sr * seconds)) / sr
+    f0 = 110.0 * 4.0 ** (t / seconds)
+    phase = np.cumsum(f0) / sr
+    x = sum(np.sin(2 * np.pi * h * phase) / h for h in range(1, 9))
+    return (0.5 * x / np.abs(x).max()).astype(np.float32)
+
+
+def phase_experiments(device, smi: str):
+    """Style transfer, Griffin-Lim and DeepDream at full size, card vs CPU."""
+    import torch
+
+    from ddsp_tpu_torch.config import Config
+    from ddsp_tpu_torch.data.audio_io import read_wav, write_wav
+    from ddsp_tpu_torch.experiments import dream as dream_mod
+    from ddsp_tpu_torch.experiments import style_transfer as st
+    from ddsp_tpu_torch.models.crepe import crepe_init
+    from ddsp_tpu_torch.ops import fir
+    from ddsp_tpu_torch.ops.griffin_lim import griffin_lim
+    from ddsp_tpu_torch.utils import gl_quality_curve as glq
+
+    cpu = torch.device("cpu")
+    conf = st.StyleTransferConfig(n_steps=ST_STEPS)
+    sr = conf.sample_rate
+    content = torch.from_numpy(glide_audio(sr, ST_SECONDS)).to(device)
+    style = torch.from_numpy(glq.fixture_audio(sr, ST_SECONDS)).to(device)
+    cs, ss = st.log_spectrogram(content, conf), st.log_spectrogram(style, conf)
+    t = min(cs.shape[1], ss.shape[1])
+    cs, ss = cs[:, :t].contiguous(), ss[:, :t].contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ext = st.extractor_init(fir.PRNGKey(0), cs.shape[0], conf, device)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    draws = [fir.normal(fir.PRNGKey(0, d), (ST_DRAW_PREFIX,)).cpu().numpy() for d in (device, cpu)]
+    ulps = np.abs(draws[0] - draws[1]) / np.spacing(np.abs(draws[1]))
+    log(f"[experiments] {smi}: extractor {tuple(ext['weight'].shape)} drawn in {draw_s:.3f} s; "
+        f"its first {ST_DRAW_PREFIX} draws card vs CPU: {(ulps > 0).mean():.4f} differ, at most "
+        f"{ulps.max():.0f} ulps")
+    require(ulps.max() <= ST_DRAW_MAX_ULPS, f"extractor draw card vs CPU {ulps.max()} ulps")
+
+    # one evaluation first (cuDNN's first call), then the card's 20 steps,
+    # each timed, and a 21st under the profiler
+    t0 = time.perf_counter()
+    st.make_value_and_grad(ext, cs, ss, conf)(cs)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    run = st.style_transfer_steps(cs, ss, conf._replace(n_steps=ST_STEPS + 1), device=device,
+                                  extractor=ext)
+    steps, ms = [], []
+    for _ in range(ST_STEPS):
+        t0 = time.perf_counter()
+        steps.append(next(run))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        profiled = next(run)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
+            by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns() / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[experiments] first loss evaluation {first_ms:.1f} ms; one profiled step "
+        f"({profiled.state.evaluations} evaluations): wall {prof_ms:.3f} ms, the card busy "
+        f"{sum(by_name.values()):.3f} ms in {len(device_kernel_ns(prof))} kernels; most: "
+        + "; ".join(f"{name[:60]} {t:.3f}" for name, t in top))
+    evals = [s.state.evaluations for s in steps]
+    f, c_in, k = ext["weight"].shape
+    tf = t - k + 1
+    flops = 4.0 * f * c_in * k * tf + 6.0 * f * f * tf  # conv fwd + d/dspec, Gram fwd + bwd
+    eval_ms = sum(ms) / sum(evals)
+    for i, s in enumerate(steps):
+        log(f"[experiments] L-BFGS step {i}: {ms[i]:.3f} ms, {evals[i]} loss evaluations, "
+            f"stepsize {float(s.state.learning_rate):.6g}, {s.state.info.num_linesearch_steps} "
+            f"line-search steps, loss {float(s.loss):.6e} (style {float(s.style):.6e})")
+    loss0, loss_end = float(steps[0].loss), float(steps[-1].loss)
+    style0, style_end = float(steps[0].style), float(steps[-1].style)
+    log(f"[experiments] style transfer {tuple(cs.shape)} on the card: median "
+        f"{statistics.median(ms):.3f} ms a step ({sum(ms):.1f} ms for {ST_STEPS}), "
+        f"{sum(evals)} loss evaluations, {eval_ms:.3f} ms each against a float32 bound of "
+        f"{flops / PEAK_FP32_FLOPS * 1e3:.3f} ms ({flops:.3e} FLOP); loss {loss0:.6e} -> "
+        f"{loss_end:.6e}, Gram distance {style0:.6e} -> {style_end:.6e}")
+    require(np.isfinite(loss_end) and loss_end < loss0, f"loss did not fall: {loss0} -> {loss_end}")
+    require(style_end < style0, f"Gram distance did not fall: {style0} -> {style_end}")
+
+    cpu_conf = conf._replace(n_steps=ST_CPU_STEPS)
+    t0 = time.perf_counter()
+    cpu_steps = list(st.style_transfer_steps(cs.cpu(), ss.cpu(), cpu_conf, device="cpu",
+                                             extractor={"weight": ext["weight"].cpu()}))
+    cpu_s = time.perf_counter() - t0
+    st_err = []
+    for i, (a, b) in enumerate(zip(cpu_steps, steps)):
+        disp = float(torch.linalg.vector_norm(a.spec - cs.cpu()))
+        err = float(torch.linalg.vector_norm(b.spec.cpu() - a.spec)) / disp
+        loss_err = abs(float(b.loss) - float(a.loss)) / abs(float(a.loss))
+        lr_err = abs(float(b.state.learning_rate) - float(a.state.learning_rate)) / float(
+            a.state.learning_rate)
+        st_err.append(err)
+        log(f"[experiments] step {i} card vs CPU: iterate {err:.3e} of its displacement, loss "
+            f"{loss_err:.3e}, stepsize {lr_err:.3e} relative, line-search steps "
+            f"{b.state.info.num_linesearch_steps} / {a.state.info.num_linesearch_steps}")
+        require(err <= ST_ITER_RTOL, f"style step {i} iterate card vs CPU {err:.3e}")
+        require(loss_err <= ST_RTOL and lr_err <= ST_RTOL,
+                f"style step {i} loss {loss_err:.3e} / stepsize {lr_err:.3e} card vs CPU")
+        require(b.state.info.num_linesearch_steps == a.state.info.num_linesearch_steps,
+                f"style step {i} line-search steps differ card vs CPU")
+    log(f"[experiments] the CPU's {ST_CPU_STEPS} steps took {cpu_s:.1f} s")
+
+    # Griffin-Lim: the style transfer's inversion, card vs CPU, the curve
+    mag = torch.expm1(torch.clamp_min(steps[-1].spec, 0.0)).T.contiguous()
+    length = (t - 1) * conf.hop
+    griffin_lim(mag, conf.n_fft, conf.hop, n_iter=2, length=length)  # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    audio = griffin_lim(mag, conf.n_fft, conf.hop, n_iter=conf.gl_iters, length=length)
+    end.record()
+    torch.cuda.synchronize()
+    gl_ms = start.elapsed_time(end)
+    sc = glq.spectral_convergence(audio, mag, conf.n_fft, conf.hop)
+    short = [griffin_lim(mag.to(d), conf.n_fft, conf.hop, n_iter=GL_CPU_ITERS, length=length)
+             for d in (device, cpu)]
+    gl_db = snr_db(short[1].numpy(), short[0].cpu().numpy())
+    log(f"[experiments] Griffin-Lim of the result, {tuple(mag.shape)}, {conf.gl_iters} iterations: "
+        f"{gl_ms:.3f} ms ({gl_ms / conf.gl_iters:.4f} ms an iteration), spectral convergence "
+        f"{sc:.5f}; {GL_CPU_ITERS} iterations card vs CPU {gl_db:.2f} dB")
+    require(audio.shape == (length,) and bool(torch.isfinite(audio).all()), "Griffin-Lim output")
+    require(gl_db > GL_FLOOR_DB, f"Griffin-Lim card vs CPU {gl_db:.2f} dB <= {GL_FLOOR_DB}")
+    curve = glq.quality_curve(device)
+    for row in curve["rows"]:
+        log(f"[experiments] Griffin-Lim curve {curve['shape']}: {row['n_iter']} iterations, "
+            f"spectral convergence {row['spectral_convergence']:.5f} ({row['mag_err_db']:.2f} dB), "
+            f"{row['ms']:.2f} ms ({row['ms_per_iter']:.4f} an iteration)")
+    scs = [row["spectral_convergence"] for row in curve["rows"]]
+    require(all(np.isfinite(scs)) and scs[-1] < scs[0], f"Griffin-Lim curve {scs}")
+
+    # DeepDream
+    crepe = crepe_init(Config().crepe_capacity, seed=SEED)
+    n = int(DREAM_SECONDS * DREAM_RATE)
+    wav = (0.3 * np.sin(2 * np.pi * 220.0 * np.arange(n) / DREAM_RATE)
+           + 0.05 * np.random.default_rng(SEED).standard_normal(n)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        in_wav, out_wav = os.path.join(tmp, "in.wav"), os.path.join(tmp, "out.wav")
+        write_wav(in_wav, wav, DREAM_RATE)
+        value = dream_mod.dream_file(crepe, in_wav, out_wav, DREAM_LAYER, DREAM_ITERS, DREAM_LR,
+                                     device=device)
+        dreamed, out_sr = read_wav(out_wav)
+        mono = read_wav(in_wav)[0][0]
+    mono = mono[: len(mono) - len(mono) % 2048][None]
+    require(out_sr == DREAM_RATE and dreamed.shape == (1, mono.shape[1])
+            and np.isfinite(dreamed).all() and np.abs(dreamed).max() <= 1.0,
+            f"dream_file output {dreamed.shape} at {out_sr} Hz")
+    _, value0 = dream_mod.dream(crepe, mono, DREAM_LAYER, 1, DREAM_LR, device=device)
+    times = {}
+    for iters in (1, DREAM_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dream_mod.dream(crepe, mono, DREAM_LAYER, iters, DREAM_LR, device=device)
+        torch.cuda.synchronize()
+        times[iters] = (time.perf_counter() - t0) * 1e3
+    dream_ms = (times[DREAM_ITERS] - times[1]) / (DREAM_ITERS - 1)
+    outs = [dream_mod.dream(crepe, mono, DREAM_LAYER, DREAM_CPU_ITERS, DREAM_LR, device=d)
+            for d in (device, "cpu")]
+    dream_db = snr_db(outs[1][0], outs[0][0])
+    value_err = abs(outs[0][1] - outs[1][1]) / outs[1][1]
+    log(f"[experiments] dream {mono.shape} on CREPE {Config().crepe_capacity}: activation norm "
+        f"{value0:.4f} -> {value:.4f} over {DREAM_ITERS} iterations, {dream_ms:.3f} ms an "
+        f"iteration; {DREAM_CPU_ITERS} iterations card vs CPU {dream_db:.2f} dB, norm "
+        f"{value_err:.3e} relative")
+    require(value > value0, f"dream activation norm did not rise: {value0} -> {value}")
+    require(dream_db > DREAM_FLOOR_DB and value_err <= DREAM_VALUE_RTOL,
+            f"dream card vs CPU {dream_db:.2f} dB, norm {value_err:.3e}")
+    return {"style_ms_per_step": statistics.median(ms), "style_eval_ms": eval_ms,
+            "style_first_eval_ms": first_ms, "style_profiled_busy_ms": sum(by_name.values()),
+            "style_evals": evals, "style_card_vs_cpu": st_err, "gl_ms_per_iter": gl_ms / conf.gl_iters,
+            "gl_sc": sc, "gl_curve": curve["rows"], "dream_ms_per_iter": dream_ms}
+
+
 def timed_phase(phase: int, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2859,6 +3085,7 @@ def main() -> int:
     timed(15, phase_precision, device)
     recon = timed(16, phase_reconstruct, device)
     par = timed(17, phase_parallel, device, smi)
+    timed(18, phase_experiments, device, smi)
 
     no_library = ("null: no single PyTorch call computes a harmonic sine-bank render or its "
                   "gradient; the nearest is the plain version")

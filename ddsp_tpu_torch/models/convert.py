@@ -1,7 +1,8 @@
 """Weight carry-over into the port's modules.
 
-* ``decoder_from_jax`` / ``crepe_from_jax`` / ``autoencoder_from_jax``
-  take the JAX package's parameter trees as numpy arrays
+* ``decoder_from_jax`` / ``crepe_from_jax`` / ``autoencoder_from_jax`` /
+  ``extractor_from_jax`` (the style-transfer conv) take the JAX
+  package's parameter trees as numpy arrays
   (``jax.tree.map(np.asarray, params)``, done by the caller so this
   package never imports jax), and the ``*_to_jax`` functions give the
   modules back in that layout, so a test can compare parameters after a
@@ -264,6 +265,13 @@ def crepe_to_jax(crepe: Crepe) -> Dict:
         "layers": layers,
         "classifier": {"weight": sd["classifier.weight"], "bias": sd["classifier.bias"]},
     }
+
+
+def extractor_from_jax(np_tree: Dict) -> Dict[str, torch.Tensor]:
+    """The style-transfer extractor of ``ddsp_tpu/experiments/
+    style_transfer.extractor_init``, ``{'weight': (features, channels,
+    kernel)}`` with a numpy leaf -> the port's ``{'weight': tensor}``."""
+    return {"weight": _t(np_tree["weight"])}
 
 
 def autoencoder_from_jax(np_tree: Dict, conf: Config) -> nn.ModuleDict:

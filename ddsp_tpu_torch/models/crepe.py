@@ -66,11 +66,17 @@ def crepe_init(capacity: str = "tiny", seed: int = 0) -> Crepe:
         return Crepe(capacity).eval()
 
 
-def load_torch_checkpoint(path: str, capacity: str = "tiny") -> Crepe:
+def load_torch_checkpoint(path: str, capacity: str = None) -> Crepe:
     """Load a reference CREPE ``.pth`` (``convN.{weight,bias}`` with
     (O, I, k, 1) weights, ``convN_BN.{weight,bias,running_mean,
-    running_var}``, ``classifier.{weight,bias}``)."""
+    running_var}``, ``classifier.{weight,bias}``).  ``capacity`` None reads
+    it from ``conv1``'s width, as the JAX package's loader takes the
+    checkpoint's shapes."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
+    if capacity is None:
+        width = sd["conv1.weight"].shape[0] if "conv1.weight" in sd else None
+        capacity = next((name for name, spec in CAPACITIES.items()
+                         if spec["out_channels"][0] == width), "tiny")
     model = Crepe(capacity)
     mapped = {}
     for key, ref in model.state_dict().items():

@@ -109,6 +109,56 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
+def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
+    """jax 0.9.0's 32-bit ``random_bits(key, shape)`` (partitionable
+    threefry): element i, in row-major order, is the xor of the two lanes
+    of the threefry pair of the 64-bit counter i.  uint32 values in int64."""
+    n = int(np.prod(shape))
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    y0, y1 = _threefry_pair(key[0], key[1], i >> 32, i & _MASK)
+    return (y0 ^ y1).reshape(shape)
+
+
+def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0,
+            dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``, bit for
+    bit: the top 23 bits as the mantissa of a float in [1, 2), minus 1,
+    scaled to [minval, maxval) and kept >= minval (float32 arithmetic)."""
+    bits = random_bits(key, shape)
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo, hi = np.float32(minval), np.float32(maxval)
+    out = torch.clamp_min(floats * float(hi - lo) + float(lo), float(lo))
+    return out.to(dtype)
+
+
+# XLA's float32 erf_inv (Giles, "Approximating the erfinv function", the
+# single-precision branch pair), evaluated as jax.lax.erf_inv evaluates it
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function on XLA's polynomial: w = -log1p(-x^2);
+    a degree-8 polynomial in w - 2.5 (w < 5) or sqrt(w) - 3, times x."""
+    w = -torch.log1p(-(x * x))
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = torch.where(lt, a, b) + p * w
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+def normal(key: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: sqrt(2) * erfinv(u) for
+    u uniform on [nextafter(-1, 0), 1) (``jax/_src/random.py:867-872``)."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = uniform(key, shape, float(lo), 1.0)
+    return (float(np.float32(np.sqrt(2))) * erfinv_f32(u)).to(dtype)
+
+
 def noise_from_counts(row_keys: torch.Tensor, counts: torch.Tensor,
                       dtype=torch.float32) -> torch.Tensor:
     """Uniform [-1, 1) noise at absolute sample ``counts`` under per-row

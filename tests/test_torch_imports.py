@@ -23,6 +23,7 @@ from ddsp_tpu_torch.config import Config
 from ddsp_tpu_torch.models.controller import decoder_init
 from ddsp_tpu_torch.models.crepe import crepe_init
 from ddsp_tpu_torch.data import dataset
+from ddsp_tpu_torch.experiments import dream, style_transfer
 from ddsp_tpu_torch.ops.fir import PRNGKey
 from ddsp_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 from ddsp_tpu_torch.parallel.render import render_long_audio
@@ -71,6 +72,13 @@ PARALLEL_MODULES = (
     "ddsp_tpu_torch.parallel.tp", "ddsp_tpu_torch.parallel.train",
     "ddsp_tpu_torch.parallel.launch",
 )
+# the spectrogram experiments' modules
+EXPERIMENT_MODULES = (
+    "ddsp_tpu_torch.ops.griffin_lim", "ddsp_tpu_torch.experiments",
+    "ddsp_tpu_torch.experiments.lbfgs", "ddsp_tpu_torch.experiments.style_transfer",
+    "ddsp_tpu_torch.experiments.dream", "ddsp_tpu_torch.experiments.ui",
+    "ddsp_tpu_torch.utils.gl_quality_curve",
+)
 # the offline reconstruction slice's modules
 RECONSTRUCT_MODULES = (
     "ddsp_tpu_torch.reconstruct", "ddsp_tpu_torch.models.lightning_export",
@@ -79,7 +87,7 @@ RECONSTRUCT_MODULES = (
 
 
 def _banned(name: str) -> bool:
-    return name == "jax" or name.startswith(("jax.", "jaxlib")) or (
+    return name in ("jax", "optax") or name.startswith(("jax.", "jaxlib", "optax.")) or (
         name == "ddsp_tpu" or name.startswith("ddsp_tpu.")
     )
 
@@ -95,7 +103,7 @@ def test_every_module_imports_without_jax():
             importlib.import_module(name)
         print(",".join(names))
         print(",".join(sorted(m for m in sys.modules
-              if m == "jax" or m.startswith(("jax.", "jaxlib"))
+              if m in ("jax", "optax") or m.startswith(("jax.", "jaxlib", "optax."))
               or m == "ddsp_tpu" or m.startswith("ddsp_tpu."))))
         """
     )
@@ -114,6 +122,7 @@ def test_every_module_imports_without_jax():
     assert set(REALTIME_MODULES) <= set(names)
     assert set(RECONSTRUCT_MODULES) <= set(names)
     assert set(PARALLEL_MODULES) <= set(names)
+    assert set(EXPERIMENT_MODULES) <= set(names)
     assert loaded == "", f"port imports pulled in {loaded}"
 
 
@@ -193,7 +202,8 @@ def _features(conf, n=4):
     "fit", "init_state", "extract_features", "train_cli",
     "finetune", "init_finetune_state", "finetune_cli", "reconstruct_cli",
     "reconstruct_file", "initialize_distributed", "render_long_audio", "render_controls_tp",
-    "make_parallel_train_step",
+    "make_parallel_train_step", "style_transfer_spec", "style_transfer_audio",
+    "style_transfer_cli", "dream", "dream_file", "dream_cli",
 ])
 def test_entry_points_raise_without_cuda(no_cuda, entry, tmp_path):
     params, crepe = decoder_init(CONF), crepe_init()
@@ -237,6 +247,20 @@ def test_entry_points_raise_without_cuda(no_cuda, entry, tmp_path):
             render_controls_tp(params.reverb, {}, CONF, None, PRNGKey(0))
         elif entry == "make_parallel_train_step":
             make_parallel_train_step(CONF, None)
+        elif entry == "style_transfer_spec":
+            spec = np.zeros((257, 20), np.float32)
+            style_transfer.style_transfer_spec(spec, spec, style_transfer.StyleTransferConfig())
+        elif entry == "style_transfer_audio":
+            audio = np.zeros(8192, np.float32)
+            style_transfer.style_transfer_audio(audio, audio)
+        elif entry == "style_transfer_cli":
+            style_transfer.main([str(tmp_path / n) for n in ("c.wav", "s.wav", "o.wav")])
+        elif entry == "dream":
+            dream.dream(crepe, np.zeros((1, 2048), np.float32))
+        elif entry == "dream_file":
+            dream.dream_file(crepe, str(tmp_path / "in.wav"), str(tmp_path / "out.wav"))
+        elif entry == "dream_cli":
+            dream.main([str(tmp_path / n) for n in ("tiny.pth", "in.wav", "out.wav")])
         elif entry == "finetune_cli":
             train.main([f"--data_dir={tmp_path}", "--num_steps=1", "--finetune_crepe=1",
                         "--pitch_decode=weighted"])
@@ -262,6 +286,21 @@ def test_explicit_cpu_runs(no_cuda):
     ft, metrics = trainer.finetune(conf, _features(conf)["audio"], 1, ft.params["decoder"],
                                    ft.params["crepe"], device="cpu")
     assert ft.step == 1 and np.isfinite(metrics["loss"])
+
+
+def test_experiment_entry_points_run_on_explicit_cpu(no_cuda, tmp_path):
+    """Style transfer (2 steps at 8 kHz, n_fft 256, 16 features) and the
+    dream (1 iteration) run where the CPU is asked for."""
+    conf = style_transfer.StyleTransferConfig(n_fft=256, hop=64, n_features=16, n_steps=2,
+                                              gl_iters=2, sample_rate=8000)
+    rng = np.random.default_rng(0)
+    content, style = (rng.standard_normal(2048).astype(np.float32) for _ in range(2))
+    out, metrics = style_transfer.style_transfer_audio(content, style, conf, device="cpu")
+    assert out.shape == (2048,) and np.isfinite(out).all() and np.isfinite(metrics["loss"])
+    write_wav(str(tmp_path / "in.wav"), 0.1 * content, 16000)
+    value = dream.dream_file(crepe_init(), str(tmp_path / "in.wav"), str(tmp_path / "out.wav"),
+                             iterations=1, lr=1.0, device="cpu")
+    assert np.isfinite(value) and (tmp_path / "out.wav").exists()
 
 
 def test_parallel_entry_points_run_on_explicit_cpu(no_cuda, tmp_path):
