@@ -180,9 +180,13 @@ Phases, each of which must pass (any failure exits non-zero):
    reverb halo spans two left shards, ``render_controls_tp`` at B = 16,
    T = 172 on 4 and 8 model ranks (h_start 0/45/90/135; 180 harmonics
    padded to 184, 23 a shard), ``render_controls_time_tp`` on 2 x 2 over
-   the file, and three ``make_parallel_train_step`` steps at full width,
-   global batch 16, on 2 and on 4 ranks; then a nccl world of one rank
-   runs the long render and one DP step.  Each render against the
+   the file, three ``make_parallel_train_step`` steps at full width,
+   global batch 16, on 2 and on 4 ranks, and the DP x SP step
+   (``parallel.sp.make_sp_train_step``, float32 reverb backward): three
+   steps on ('data' 2, 'time' 4) at global batch 16 of 2 s (43 frames a
+   time shard, the reverb halo over three left shards) and one on ('data'
+   1, 'time' 8) over one 16 s example of 1,376 frames; then a nccl world
+   of one rank runs the long render and one DP step.  Each render against the
    unsharded card render > 70 dB, every rank's copy equal, K1 launched
    once a rank on the rotation fill at that rank's h_start, and every
    time shard but the first entering K1 at a nonzero phase; each DP step
@@ -190,7 +194,10 @@ Phases, each of which must pass (any failure exits non-zero):
    and key before it) at phase 9's bf16 criterion, K2 and S1 once a step
    on every rank, the replicas' state checksums bit-equal after the
    steps (the free-running single-card steps printed beside, not judged:
-   Adam parts the two runs); K1 at the TP shard shape (B=16, T=172, hop
+   Adam parts the two runs); each SP step held the same way, every rank's
+   metrics equal, K1 and K2 launched on the rotation fill on every rank
+   every step and S1 never, each rank's peak device memory a step printed
+   beside the single card's (a record, not judged); K1 at the TP shard shape (B=16, T=172, hop
    512, H=45, h_start 135) against its plain version > 90 dB and timed.
    Wall ms per rank beside the unsharded run, printed with the card's
    name and power limit: the ranks share one card, so they are not
@@ -221,7 +228,8 @@ The line before the last is a JSON object describing each kernel (launches
 on its main path, the real-time path's launches of K5 and K1 as
 ``launches_realtime``, the reconstruction's K1 launches as
 ``launches_reconstruct`` with its timing at that shape, phase 17's
-launches of K1, K2 and S1 as ``launches_parallel`` and K1 at the TP
+launches of K1, K2 and S1 as ``launches_parallel`` (K1's and K2's by
+render, DP steps and SP steps) and K1 at the TP
 shard shape as ``parallel_tp_shard``, agreement with its
 plain version, kernel, plain, bound and library times); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -861,15 +869,17 @@ def phase_frames(device):
 # --------------------------------------------------------------- phase 6
 
 
-def feature_batch(conf, n: int, seed: int):
-    """A seeded numpy training batch {f0, normalized_cents, loudness, audio}."""
+def feature_batch(conf, n: int, seed: int, frames=None):
+    """A seeded numpy training batch {f0, normalized_cents, loudness, audio}
+    of ``conf``'s examples, or of ``frames`` frames an example."""
     rng = np.random.default_rng(seed)
-    t = conf.frames_per_example
+    t = frames or conf.frames_per_example
+    length = t * conf.hop_length if frames else conf.example_length
     return {
         "f0": rng.uniform(100.0, 400.0, (n, t, 1)).astype(np.float32),
         "normalized_cents": rng.uniform(0.0, 1.0, (n, t, 1)).astype(np.float32),
         "loudness": rng.uniform(0.0, 1.0, (n, t, 1)).astype(np.float32),
-        "audio": (0.1 * rng.standard_normal((n, conf.example_length))).astype(np.float32),
+        "audio": (0.1 * rng.standard_normal((n, length))).astype(np.float32),
     }
 
 
@@ -2423,6 +2433,14 @@ PAR_TIME_RANKS = 4
 PAR_HALO_FRAMES = 344
 PAR_TP_BATCH, PAR_TP_FRAMES, PAR_TP_RANKS = 16, 172, (4, 8)
 PAR_DP_BATCH, PAR_DP_STEPS, PAR_DP_RANKS = 16, 3, (2, 4)
+# the DP x SP step (parallel/sp.py) at full width with the float32 reverb
+# backward (its sharded render's, so S1 is off its path): ('data' 2,
+# 'time' 4) over 16 examples of 2 s (43 frames, 22,016 samples a shard, so
+# the 44,100-tap reverb halo spans three left shards), and ('data' 1,
+# 'time' 8) over one 16 s example of 1,376 frames (172 frames, 88,064
+# samples a shard: one 2 s example's width a rank)
+PAR_SP_BATCH, PAR_SP_STEPS, PAR_SP_MESH = 16, 3, (2, 4)
+PAR_SP_LONG_FRAMES, PAR_SP_LONG_MESH = 1376, (1, 8)
 # hard limits: one spawn, start-up included; a collective's wait for a peer
 PAR_SPAWN_S, PAR_GROUP_S = 420, 120
 # the sharded renders against the unsharded card render: the JAX suite's
@@ -2461,14 +2479,16 @@ def probe_gloo_cuda(dev) -> dict:
 def parallel_rank(rank, dev, job):
     """One rank of phase 17: each case this rank is in, with its wall ms
     (synchronised), K1's calls (h_start, fill, the first sample's phase)
-    and every hand kernel's launches, counted from 0 at the case's start."""
+    and every hand kernel's launches (K1's and K2's also by option set),
+    counted from 0 at the case's start; a train step's also with the
+    rank's peak device bytes in it."""
     import torch
 
     from ddsp_tpu_torch.config import Config
     from ddsp_tpu_torch.models.convert import decoder_from_state_dict
     from ddsp_tpu_torch.ops.cuda import launch_counts, osc_frames, reset_launch_counts
     from ddsp_tpu_torch.ops.fir import PRNGKey
-    from ddsp_tpu_torch.parallel import mesh as pmesh, render, tp, train
+    from ddsp_tpu_torch.parallel import mesh as pmesh, render, sp, tp, train
     from ddsp_tpu_torch.training import trainer
 
     conf, out, k1 = Config(), {}, []
@@ -2520,10 +2540,12 @@ def parallel_rank(rank, dev, job):
             case("time_tp", mesh, lambda: tp.render_controls_time_tp(
                 decoder.reverb, job["long_controls"], conf, mesh, key, device=dev),
                 lambda x: pmesh.gather_time(x, mesh))
-        for n in ((1,) if job["nccl"] else PAR_DP_RANKS):
-            mesh = pmesh.make_mesh(n_data=n, ranks=range(n))
+
+        def train_case(name, mesh, conf, make_step, shard, batch_np, n_steps):
+            """``n_steps`` of ``make_step(conf, mesh)`` from the seeded
+            state, replicated, on this rank's part of ``batch_np``."""
             if mesh.coords is None:
-                continue
+                return
             grads = []
 
             def recording(self, params, g, state, value):
@@ -2531,31 +2553,49 @@ def parallel_rank(rank, dev, job):
                 return opt_step(self, params, g, state, value)
 
             state = train.shard_state(trainer.init_state(PRNGKey(SEED), conf, device=dev), mesh)
-            step = train.make_parallel_train_step(conf, mesh, device=dev)
-            batch = train.shard_batch(job["dp_batch"], mesh, device=dev)
+            step = make_step(conf, mesh, device=dev)
+            batch = shard(batch_np, mesh, device=dev)
             trainer.AdamPlateau.step = recording
             try:
                 steps = []
-                for _ in range(1 if job["nccl"] else PAR_DP_STEPS):
+                for _ in range(n_steps):
                     before = None if rank else dict(
                         params={k: v.detach().cpu().clone()
                                 for k, v in state.params.state_dict().items()},
                         rng=state.rng.cpu().clone())
                     torch.cuda.synchronize()
                     reset_launch_counts()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    held = torch.cuda.memory_allocated(dev)
                     t0 = time.perf_counter()
                     state, m = step(state, batch)
                     torch.cuda.synchronize()
                     steps.append(dict(wall_ms=1e3 * (time.perf_counter() - t0),
                                       metrics={k: float(v) for k, v in m.items()},
-                                      counts={k: v for k, v in launch_counts().items() if v},
+                                      counts={**{k: v for k, v in launch_counts().items() if v},
+                                              **osc_frames.VARIANT_LAUNCHES},
+                                      peak_bytes=torch.cuda.max_memory_allocated(dev) - held,
                                       before=before))
             finally:
                 trainer.AdamPlateau.step = opt_step
-            out[f"dp{n}"] = dict(steps=steps, grads=grads if rank == 0 else None,
-                                 checksum=train.state_checksum(state).cpu().numpy())
+            out[name] = dict(steps=steps, grads=grads if rank == 0 else None,
+                             checksum=train.state_checksum(state).cpu().numpy())
             del state, step, batch
             torch.cuda.empty_cache()
+
+        for n in ((1,) if job["nccl"] else PAR_DP_RANKS):
+            train_case(f"dp{n}", pmesh.make_mesh(n_data=n, ranks=range(n)), conf,
+                       train.make_parallel_train_step, train.shard_batch, job["dp_batch"],
+                       1 if job["nccl"] else PAR_DP_STEPS)
+        if not job["nccl"]:
+            sp_conf = Config(reverb_grad_matmul_dtype="float32")
+            for name, (n_data, n_time), key, n_steps in (
+                    ("sp2x4", PAR_SP_MESH, "sp_batch", PAR_SP_STEPS),
+                    ("sp1x8_long", PAR_SP_LONG_MESH, "sp_long_batch", 1)):
+                mesh = pmesh.make_mesh(n_data=n_data, n_time=n_time,
+                                       ranks=range(n_data * n_time))
+                train_case(name, mesh, sp_conf, sp.make_sp_train_step, sp.shard_sp_batch,
+                           job[key], n_steps)
     finally:
         osc_frames.osc_frames_fwd = launch
     return out
@@ -2565,7 +2605,8 @@ def single_step_grads(conf, batch_np, device, steps: int, starts=None):
     """Single-card train steps on the whole batch: ``steps`` steps from
     ``init_state(PRNGKey(SEED))``, or one step from each of ``starts``
     ({'params': a decoder state dict, 'rng': the key}); [(metrics, the
-    gradients Adam took, wall ms)] per step, and the leaves' names."""
+    gradients Adam took, wall ms, the step's peak device bytes above what
+    was allocated before it)] per step, and the leaves' names."""
     import torch
 
     from ddsp_tpu_torch.ops.fir import PRNGKey
@@ -2587,11 +2628,14 @@ def single_step_grads(conf, batch_np, device, steps: int, starts=None):
                 state.params.load_state_dict(starts[i]["params"])
                 state = state._replace(rng=starts[i]["rng"].to(device))
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            held = torch.cuda.memory_allocated(device)
             t0 = time.perf_counter()
             state, m = step(state, batch)
             torch.cuda.synchronize()
             out.append(({k: float(v) for k, v in m.items()}, grads[-1],
-                        1e3 * (time.perf_counter() - t0)))
+                        1e3 * (time.perf_counter() - t0),
+                        torch.cuda.max_memory_allocated(device) - held))
     finally:
         trainer.AdamPlateau.step = opt_step
     names = [n for n, _ in state.params.named_parameters()]
@@ -2602,7 +2646,7 @@ def dp_distances(got_steps, got_grads, want, names):
     """[(loss relative, grad_norm relative, worst leaf, its |diff| over its
     norm, its criterion)] of each DP step against a single-card step."""
     out = []
-    for s, g, (m_want, g_want, _) in zip(got_steps, got_grads, want):
+    for s, g, (m_want, g_want, *_) in zip(got_steps, got_grads, want):
         leaf, crit, rel = worst_leaf(dict(zip(names, g)), dict(zip(names, g_want)), FT_GRAD_RTOL)
         out.append((abs(s["metrics"]["loss"] - m_want["loss"]) / abs(m_want["loss"]),
                     abs(s["metrics"]["grad_norm"] - m_want["grad_norm"]) / m_want["grad_norm"],
@@ -2695,11 +2739,17 @@ def phase_parallel(device, smi: str):
     dp_conf = Config(batch_size=PAR_DP_BATCH)
     dp_batch = feature_batch(dp_conf, PAR_DP_BATCH, SEED + 18)
     single, names = single_step_grads(dp_conf, dp_batch, device, PAR_DP_STEPS)
+    sp_conf = Config(reverb_grad_matmul_dtype="float32")
+    sp_batch = feature_batch(sp_conf, PAR_SP_BATCH, SEED + 19)
+    sp_long_batch = feature_batch(sp_conf, 1, SEED + 20, frames=PAR_SP_LONG_FRAMES)
+    sp_single = {"sp2x4": single_step_grads(sp_conf, sp_batch, device, PAR_SP_STEPS)[0],
+                 "sp1x8_long": single_step_grads(sp_conf, sp_long_batch, device, 1)[0]}
     job = dict(decoder={k: v.cpu() for k, v in decoder.state_dict().items()},
                features={k: v.cpu().numpy() for k, v in feats.items()},
                tp_controls={k: v.cpu().numpy() for k, v in tp_controls.items()},
                long_controls={k: v.cpu().numpy() for k, v in long_controls.items()},
-               dp_batch=dp_batch, probe=True, nccl=False)
+               dp_batch=dp_batch, sp_batch=sp_batch, sp_long_batch=sp_long_batch, probe=True,
+               nccl=False)
     params.to("cpu")
     torch.cuda.empty_cache()
 
@@ -2783,12 +2833,49 @@ def phase_parallel(device, smi: str):
     result["cases"]["nccl_dp1"] = dict(
         steps=check_dp("nccl dp1", nd, dp_conf, dp_batch, device, single, names),
         wall_ms=[nd["steps"][0]["wall_ms"]])
+    k2_rot = osc_frames.variant_name("osc_frames_bwd", "rot")
+    sp_launches = {"osc_frames_fwd": 0, "osc_frames_bwd": 0}
+    for name, batch_np, (n_data, n_time) in (("sp2x4", sp_batch, PAR_SP_MESH),
+                                             ("sp1x8_long", sp_long_batch, PAR_SP_LONG_MESH)):
+        n = n_data * n_time
+        sp_ranks = [r[name] for r in ranks[:n]]
+        for r, d in enumerate(sp_ranks):
+            require(np.array_equal(d["checksum"], sp_ranks[0]["checksum"]),
+                    f"{name}: rank {r}'s state differs from rank 0's after the steps")
+            for i, st in enumerate(d["steps"]):
+                c = st["counts"]
+                require(st["metrics"] == sp_ranks[0]["steps"][i]["metrics"],
+                        f"{name} rank {r} step {i + 1}: metrics differ from rank 0's")
+                require(c.get(k1_rot, 0) >= 1 and c.get(k2_rot, 0) >= 1
+                        and c.get("osc_frames_fwd") == c.get(k1_rot)
+                        and c.get("osc_frames_bwd") == c.get(k2_rot)
+                        and not c.get("ct_conv_dsignal"),
+                        f"{name} rank {r} step {i + 1}: launches {c} (K1 and K2 on rot, no S1)")
+                for k in sp_launches:
+                    sp_launches[k] += c.get(k, 0)
+        walls = [[round(st["wall_ms"], 3) for st in d["steps"]] for d in sp_ranks]
+        peaks = [max(st["peak_bytes"] for st in d["steps"]) for d in sp_ranks]
+        single_peak = max(st[3] for st in sp_single[name])
+        log(f"[parallel] {name}: ('data' {n_data}, 'time' {n_time}) over {batch_np['f0'].shape[0]}"
+            f" example(s) of {batch_np['f0'].shape[1]} frames, {len(sp_ranks[0]['steps'])} "
+            f"step(s); replicas' state checksums bit-equal, metrics equal; K1 and K2 on rot a "
+            f"step by rank {[[st['counts'].get(k1_rot) for st in d['steps']] for d in sp_ranks]}"
+            f", {[[st['counts'].get(k2_rot) for st in d['steps']] for d in sp_ranks]}; wall ms a "
+            f"step by rank {walls}, single card {[round(st[2], 3) for st in sp_single[name]]}; "
+            f"peak device MB a step by rank {[round(p / 2**20, 1) for p in peaks]}, single card "
+            f"{single_peak / 2**20:.1f} (above what each held before the step; a record, not "
+            f"judged); {note}")
+        result["cases"][name] = dict(
+            steps=check_dp(name, sp_ranks[0], sp_conf, batch_np, device, sp_single[name], names),
+            wall_ms=walls, single_ms=[st[2] for st in sp_single[name]], peak_bytes=peaks,
+            single_peak_bytes=single_peak, mesh=[n_data, n_time])
     renders = ("long", "halo", "tp4", "tp8", "time_tp")
     k1_launches = sum(r[c]["counts"].get("osc_frames_fwd", 0)
                       for r in ranks + [nccl] for c in r if c in renders)
     for k in launches:
         launches[k] += nd["steps"][0]["counts"].get(k, 0)
-    result["launches"] = dict(launches, osc_frames_fwd_renders=k1_launches)
+    result["launches"] = dict(launches, osc_frames_fwd_renders=k1_launches,
+                              sp_steps=sp_launches)
 
     # K1 at the TP shard shape (B=16, T=172, hop 512, H=45, h_start 135):
     # the last quarter of a bank normalised over all its harmonics, as
@@ -3109,10 +3196,12 @@ def main() -> int:
     k1["launches_reconstruct"] = recon["launches"]
     k1["reconstruct_shape"] = recon["k1"]
     k1["launches_parallel"] = {"renders": par["launches"]["osc_frames_fwd_renders"],
-                               "dp_steps": par["launches"]["osc_frames_fwd"]}
+                               "dp_steps": par["launches"]["osc_frames_fwd"],
+                               "sp_steps": par["launches"]["sp_steps"]["osc_frames_fwd"]}
     k1["parallel_tp_shard"] = par["k1_tp_shard"]
     k2 = next(k for k in kernels if k["name"] == "osc_frames_bwd")
-    k2["launches_parallel"] = par["launches"]["osc_frames_bwd"]
+    k2["launches_parallel"] = {"dp_steps": par["launches"]["osc_frames_bwd"],
+                               "sp_steps": par["launches"]["sp_steps"]["osc_frames_bwd"]}
     kernels.append(dict(
         name="osc_frames_overlap_add", route="cuda", source="ddsp_tpu_torch/csrc/osc_frames.cu",
         replaces="ddsp_tpu/ops/pallas/oscillator.py:777", tpu_function="_kernel_banked2_bwd "

@@ -15,9 +15,13 @@ with three exchanges over the time axis's group (``collectives.py``):
 3. **reverb halo (overlap-save)**: the ``ir_length`` dry samples before
    the shard, from as many left neighbours as they span.
 
-The noise is keyed by absolute frame, so it is bit-equal to the
-unsharded render's.  Forward only: the
-renders run under ``torch.no_grad``.
+The noise is keyed by absolute frame and global row, so it is bit-equal
+to the unsharded render's.  :func:`render_controls_local` is
+differentiable (the sequence-parallel loss, ``sp.py``, trains through it):
+its selects between a neighbour's frames and a rank's own are
+``torch.where`` on a rank mask, so every rank issues the same backward
+collectives.  The renders, :func:`render_controls_sharded` and
+:func:`render_long_audio`, run under ``torch.no_grad``.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ from ddsp_tpu_torch.models.synths import osc_fill, reverb_impulse
 from ddsp_tpu_torch.ops.fir import fft_convolve, filtered_noise
 from ddsp_tpu_torch.ops.interp import hop_weight_cumsum_on
 from ddsp_tpu_torch.ops.oscillator import QUANT, nyquist_normalized_amps, render_padded
-from ddsp_tpu_torch.parallel.collectives import all_gather, axis_index, axis_size, ppermute, psum
+from ddsp_tpu_torch.parallel.collectives import (all_gather, axis_index, axis_size, ppermute,
+                                                 psum, rank_mask)
 from ddsp_tpu_torch.parallel.mesh import TIME_AXIS, Mesh, time_sharding
 
 CONTROL_KEYS = ("f0", "c", "a", "H")
@@ -49,7 +54,7 @@ def _neighbor_frame(x: torch.Tensor, direction: int, group) -> torch.Tensor:
     else:
         edge, perm, fallback, is_edge = x[:, :1], [(i + 1, i) for i in range(n - 1)], x[:, -1:], idx == n - 1
     got = ppermute(edge.contiguous(), group, perm)
-    return fallback if is_edge else got
+    return torch.where(rank_mask(is_edge, x), fallback, got)
 
 
 def _with_context(x: torch.Tensor, group) -> torch.Tensor:
@@ -72,12 +77,13 @@ def _halo_left(x: torch.Tensor, halo: int, group) -> torch.Tensor:
     """The ``halo`` samples before this shard (zeros before the start),
     from ceil(halo / local) left neighbours when the halo spans several
     shards: one ``all_gather`` of every shard's last min(halo, local)
-    samples, then a select."""
+    samples, then a select (zeros where no shard is j to the left)."""
     local = x.shape[-1]
     k = -(-halo // local)  # shards the halo spans
     idx = axis_index(group)
     tails = all_gather(x[..., -min(halo, local):].contiguous(), group)
-    pieces = [tails[idx - j] if idx >= j else torch.zeros_like(tails[0])
+    pieces = [torch.where(rank_mask(idx >= j, x), tails[max(idx - j, 0)],
+                          torch.zeros_like(tails[0]))
               for j in range(k, 0, -1)]
     window = torch.cat(pieces, dim=-1)
     if window.shape[-1] >= halo:
@@ -134,6 +140,7 @@ def render_controls_local(
     mesh: Mesh,
     impl: Optional[str] = None,
     model_axis: Optional[str] = None,
+    row_offset: int = 0,
 ) -> torch.Tensor:
     """One shard's synthesis: this rank's frames -> its audio samples.
 
@@ -145,7 +152,10 @@ def render_controls_local(
     :func:`tp_harmonics` (f0 is the same on every model rank, so is the
     carry).  ``impl`` ('xla' | 'pallas' | 'auto', None = ``conf.osc_impl``)
     picks the sine fill as ``models/synths.osc_fill`` does: on the card
-    'pallas' and 'auto' run K1 on the rotation fill.
+    'pallas' and 'auto' run K1 on the rotation fill.  ``row_offset``: the
+    first row's index in the global batch, when the rows are also sharded
+    (over 'data': ``data_index * B_local``); the noise takes each row's
+    global key, as JAX's ``data_axis`` / ``b_global`` draw it.
     """
     time_group = mesh.groups[TIME_AXIS]
     idx = axis_index(time_group)
@@ -165,7 +175,8 @@ def render_controls_local(
     else:
         harm = tp_harmonics(f0_pad, amps_pad, loud_pad, conf, mesh.groups[model_axis], fill,
                             initial_phase=phase0)
-    dry = harm + filtered_noise(noise_mags, key, conf.hop_length, frame_offset=idx * t_local)
+    dry = harm + filtered_noise(noise_mags, key, conf.hop_length, frame_offset=idx * t_local,
+                                row_offset=row_offset)
 
     ir_len = conf.ir_length
     window = torch.cat([_halo_left(dry, ir_len, time_group), dry], dim=-1)

@@ -27,6 +27,7 @@ from ddsp_tpu_torch.experiments import dream, style_transfer
 from ddsp_tpu_torch.ops.fir import PRNGKey
 from ddsp_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 from ddsp_tpu_torch.parallel.render import render_long_audio
+from ddsp_tpu_torch.parallel.sp import make_sp_train_step, shard_sp_batch
 from ddsp_tpu_torch.parallel.tp import decoder_apply_tp, make_dp_tp_mesh, render_controls_tp
 from ddsp_tpu_torch.parallel.train import make_parallel_train_step, shard_batch, shard_state
 from ddsp_tpu_torch.runtime import server
@@ -70,7 +71,7 @@ PARALLEL_MODULES = (
     "ddsp_tpu_torch.parallel", "ddsp_tpu_torch.parallel.mesh",
     "ddsp_tpu_torch.parallel.collectives", "ddsp_tpu_torch.parallel.render",
     "ddsp_tpu_torch.parallel.tp", "ddsp_tpu_torch.parallel.train",
-    "ddsp_tpu_torch.parallel.launch",
+    "ddsp_tpu_torch.parallel.launch", "ddsp_tpu_torch.parallel.sp",
 )
 # the spectrogram experiments' modules
 EXPERIMENT_MODULES = (
@@ -202,7 +203,7 @@ def _features(conf, n=4):
     "fit", "init_state", "extract_features", "train_cli",
     "finetune", "init_finetune_state", "finetune_cli", "reconstruct_cli",
     "reconstruct_file", "initialize_distributed", "render_long_audio", "render_controls_tp",
-    "make_parallel_train_step", "style_transfer_spec", "style_transfer_audio",
+    "make_parallel_train_step", "make_sp_train_step", "style_transfer_spec", "style_transfer_audio",
     "style_transfer_cli", "dream", "dream_file", "dream_cli",
 ])
 def test_entry_points_raise_without_cuda(no_cuda, entry, tmp_path):
@@ -247,6 +248,8 @@ def test_entry_points_raise_without_cuda(no_cuda, entry, tmp_path):
             render_controls_tp(params.reverb, {}, CONF, None, PRNGKey(0))
         elif entry == "make_parallel_train_step":
             make_parallel_train_step(CONF, None)
+        elif entry == "make_sp_train_step":
+            make_sp_train_step(CONF, None)
         elif entry == "style_transfer_spec":
             spec = np.zeros((257, 20), np.float32)
             style_transfer.style_transfer_spec(spec, spec, style_transfer.StyleTransferConfig())
@@ -329,6 +332,10 @@ def test_parallel_entry_points_run_on_explicit_cpu(no_cuda, tmp_path):
         step = make_parallel_train_step(conf, mesh, device="cpu")
         state, metrics = step(state, shard_batch(feats, mesh, device="cpu"))
         assert state.step == 1 and torch.isfinite(metrics["loss"])
+        mesh = make_mesh(n_data=1, n_time=1)
+        step = make_sp_train_step(conf, mesh, device="cpu")
+        state, sp_metrics = step(state, shard_sp_batch(feats, mesh, device="cpu"))
+        assert state.step == 2 and torch.isfinite(sp_metrics["loss"])
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

@@ -8,13 +8,26 @@ every subprocess has a hard timeout, so no test can hang the suite.
 * two processes render time-sharded (``render_long_audio``, 2 x 32
   frames) and agree with the single-process decode at > 70 dB, the JAX
   suite's floor (measured 131.2 dB);
+* four processes take three DP x SP steps (``parallel.sp``) on a ('data'
+  2, 'time' 2) mesh (the counterpart of tests/test_multihost.py:99): every
+  process's losses equal and its state checksum bit-equal, and the losses
+  those of the single-process step within 1e-5 relative (measured 7.2e-8
+  at the first step, 0 at the next two);
 * one rank exits between two all-reduces: the survivor raises instead of
   hanging, within its 10 s group timeout (measured 0.016 s: gloo sees the
   dead peer's connection reset);
 * on a card (marked ``cuda``): the harmonic-sharded render on 4 gloo ranks
   sharing ``cuda:0`` (``chip_smoke.py`` phase 17's case 3 at a small
   width), each rank launching K1 once on the rotation fill at its own
-  ``h_start``, against the unsharded card render at > 70 dB.
+  ``h_start``, against the unsharded card render at > 70 dB; and three
+  DP x SP steps on a ('data' 2, 'time' 4) mesh of 8 gloo ranks sharing
+  ``cuda:0`` (the CPU suite's (2, 4) case), each rank launching K1 and K2
+  once a step on the rotation fill, held to the card's single step at
+  ``chip_smoke.py`` phase 9's criterion: loss within 1e-4 and
+  ``grad_norm`` within 1e-3 relative, each gradient leaf from the same
+  state within 5e-3 of its norm plus 1e-6 of the whole gradient's, the
+  parameters after each free-running step at allclose(rtol=2e-3,
+  atol=2e-5) (the JAX suite's SP criterion).
 """
 
 import os
@@ -79,6 +92,29 @@ def test_two_process_time_sharded_render(tmp_path):
     assert _snr(want, got) > 70.0, _snr(want, got)
 
 
+def test_four_process_sp_steps_match_single_process(tmp_path):
+    sys.path.insert(0, os.path.dirname(WORKER))
+    import torch_multihost_worker as worker
+    from ddsp_tpu_torch.config import Config
+    from ddsp_tpu_torch.ops.fir import PRNGKey
+    from ddsp_tpu_torch.training.trainer import init_state, make_train_step
+
+    results = _launch("sp", tmp_path, world=4)
+    for rc, _, log in results:
+        assert rc == 0, log[-3000:]
+    got = [d for _, d, _ in results]
+    for d in got[1:]:
+        assert d["losses"] == got[0]["losses"]
+        np.testing.assert_array_equal(d["checksum"], got[0]["checksum"])
+    conf = Config(**worker.SP_KW)
+    state, step = init_state(PRNGKey(0), conf, device="cpu"), make_train_step(conf)
+    batch = {k: torch.from_numpy(v) for k, v in worker.sp_batch().items()}
+    for i, loss in enumerate(got[0]["losses"]):
+        state, metrics = step(state, batch)
+        want = float(metrics["loss"])
+        assert abs(loss - want) <= 1e-5 * abs(want), (i, loss, want)
+
+
 def test_killed_rank_fails_its_survivor(tmp_path):
     (rc0, d0, log0), (rc1, _, _) = _launch("crash", tmp_path)
     assert rc1 == 17  # the scripted death happened
@@ -121,3 +157,48 @@ def test_tp_render_on_card_launches_k1_per_rank(cuda_device):
         assert r["counts"]["osc_frames_fwd"] == 1, r["counts"]
         assert r["h_starts"] == [10 * rank] and r["fills"] == ["rot"], r
         assert _snr(want, r["out"]) > 70.0, (rank, _snr(want, r["out"]))
+
+
+@pytest.mark.cuda
+def test_sp_steps_on_card_launch_k1_k2_per_rank(cuda_device):
+    sys.path.insert(0, os.path.dirname(WORKER))
+    import torch_multihost_worker as worker
+    import torch_parallel_cases as cases
+    from ddsp_tpu_torch.config import Config
+    from ddsp_tpu_torch.models.controller import decoder_init
+    from ddsp_tpu_torch.models.convert import decoder_to_jax
+    from ddsp_tpu_torch.ops.cuda.osc_frames import variant_name
+    from ddsp_tpu_torch.ops.fir import PRNGKey
+    from ddsp_tpu_torch.parallel.launch import run_ranks
+
+    conf = Config(**worker.SP_KW)
+    case = dict(kind="sp", conf=worker.SP_KW, ranks=8, n_data=2, n_time=4,
+                steps=worker.SP_STEPS, batch=worker.sp_batch(),
+                params=decoder_to_jax(decoder_init(conf, seed=0)), rng=PRNGKey(0).numpy())
+    ranks = [r["sp"] for r in run_ranks(cases.run_cases, 8, ({"sp": case},), backend="gloo",
+                                        device="cuda", timeout=300, group_timeout=60)]
+    for r in ranks:
+        assert r["metrics"] == ranks[0]["metrics"]
+        np.testing.assert_array_equal(r["checksum"], ranks[0]["checksum"])
+        for c in r["counts"]:
+            assert (c.get("osc_frames_fwd") == c.get(variant_name("osc_frames_fwd", "rot")) == 1
+                    and c.get("osc_frames_bwd") == c.get(variant_name("osc_frames_bwd", "rot"))
+                    == 1), c
+    got = ranks[0]
+    start = {k: torch.as_tensor(v) for k, v in
+             cases.case_state(case, conf, "cpu").params.state_dict().items()}
+    starts = [start] + [{k: torch.from_numpy(v) for k, v in p.items()}
+                        for p in got["params"][:-1]]
+    names = [k for k, _ in cases.case_state(case, conf, "cpu").params.named_parameters()]
+    for i, (fm, fparams, sm, sgrads) in enumerate(cases.single_steps(case, starts, cuda_device)):
+        m = got["metrics"][i]
+        assert abs(m["loss"] - fm["loss"]) <= 1e-4 * abs(fm["loss"]), (i, m, fm)
+        assert abs(m["loss"] - sm["loss"]) <= 1e-4 * abs(sm["loss"]), (i, m, sm)
+        assert abs(m["grad_norm"] - sm["grad_norm"]) <= 1e-3 * sm["grad_norm"], (i, m, sm)
+        total = np.sqrt(sum(float((g * g).sum()) for g in sgrads))
+        for k, g, w in zip(names, got["grads"][i], sgrads):
+            diff = np.linalg.norm(g - w)
+            assert diff <= 5e-3 * np.linalg.norm(w) + 1e-6 * total, (i, k, diff)
+        for k, v in fparams.items():
+            np.testing.assert_allclose(got["params"][i][k], v, rtol=2e-3, atol=2e-5,
+                                       err_msg=f"step {i} {k}")

@@ -33,7 +33,7 @@ def _case(case, dev):
     from ddsp_tpu_torch.config import Config
     from ddsp_tpu_torch.models.convert import decoder_from_jax
     from ddsp_tpu_torch.ops.fir import PRNGKey
-    from ddsp_tpu_torch.parallel import mesh as pmesh, render, tp, train
+    from ddsp_tpu_torch.parallel import mesh as pmesh, render, sp, tp, train
 
     kind, conf = case["kind"], Config(**case["conf"])
     ranks = range(case["ranks"])
@@ -73,26 +73,18 @@ def _case(case, dev):
             reverb_module(case["reverb"], conf), case["controls"], conf, mesh, key,
             impl=case.get("impl"), device=dev)
         return _full_time(local, mesh)
-    if kind == "dp":
-        mesh = pmesh.make_mesh(n_data=case["ranks"], ranks=ranks)
+    if kind in ("dp", "sp"):
+        mesh = pmesh.make_mesh(n_data=case.get("n_data", case["ranks"]),
+                               n_time=case.get("n_time", 1), ranks=ranks)
         if mesh.coords is None:
             return None
-        from ddsp_tpu_torch.training import trainer
-
-        decoder = decoder_from_jax(case["params"], conf)
-        state = trainer.TrainState(0, decoder, trainer.make_optimizer(conf).init(
-            list(decoder.parameters())), torch.as_tensor(case["rng"], dtype=torch.int64))
-        state = train.shard_state(state, mesh)
-        step = train.make_parallel_train_step(conf, mesh, device=dev)
-        batch = train.shard_batch(case["batch"], mesh, device=dev)
-        metrics, params = [], []
-        for _ in range(case["steps"]):
-            state, m = step(state, batch)
-            metrics.append({k: float(v) for k, v in m.items()})
-            params.append({k: v.detach().cpu().numpy().copy()
-                           for k, v in state.params.state_dict().items()})
-        return {"metrics": metrics, "params": params,
-                "checksum": train.state_checksum(state).cpu().numpy()}
+        if kind == "dp":
+            step = train.make_parallel_train_step(conf, mesh, device=dev)
+            batch = train.shard_batch(case["batch"], mesh, device=dev)
+        else:
+            step = sp.make_sp_train_step(conf, mesh, device=dev)
+            batch = sp.shard_sp_batch(case["batch"], mesh, device=dev)
+        return train_steps(case, conf, mesh, step, batch, dev)
     if kind == "shardings":
         mesh = pmesh.make_mesh(n_data=case["n_data"], n_time=case["n_time"], ranks=ranks)
         if mesh.coords is None:
@@ -105,7 +97,128 @@ def _case(case, dev):
                 "frames": frames.cpu().numpy(),
                 "gathered_frames": pmesh.gather_time(frames, mesh, axis=1).cpu().numpy(),
                 "replicated": pmesh.replicated(mine, mesh).cpu().numpy()}
+    if kind == "collectives":
+        return collectives_case(case, dev)
+    if kind == "sp_errors":
+        return sp_errors_case(case, conf, dev)
     raise ValueError(f"unknown case {kind!r}")
+
+
+def recorded_grads():
+    """(list, restore): every gradient list the optimizer takes from now
+    on is appended to the list (as float64 CPU arrays), until restore()."""
+    from ddsp_tpu_torch.training import trainer
+
+    opt_step, grads = trainer.AdamPlateau.step, []
+
+    def recording(self, params, g, state, value):
+        grads.append([t.detach().double().cpu().numpy() for t in g])
+        return opt_step(self, params, g, state, value)
+
+    trainer.AdamPlateau.step = recording
+    return grads, lambda: setattr(trainer.AdamPlateau, "step", opt_step)
+
+
+def case_state(case, conf, dev, params=None, rng=None):
+    """A fresh train state on ``dev`` from the case's JAX-tree parameters
+    and key, or from a ``Decoder`` state dict and a key."""
+    from ddsp_tpu_torch.models.convert import decoder_from_jax, decoder_from_state_dict
+    from ddsp_tpu_torch.training import trainer
+
+    decoder = (decoder_from_jax(case["params"], conf) if params is None
+               else decoder_from_state_dict(params, conf)).to(dev)
+    return trainer.TrainState(0, decoder, trainer.make_optimizer(conf).init(
+        list(decoder.parameters())), torch.as_tensor(case["rng"] if rng is None else rng,
+                                                     dtype=torch.int64, device=dev))
+
+
+def train_steps(case, conf, mesh, step, batch, dev):
+    """``case['steps']`` steps of a parallel train step from the case's
+    replicated state: each step's metrics, the gradients Adam took, the
+    parameters after it and every hand kernel's launches in it (K1's and
+    K2's also by option set), and the state's checksum at the end."""
+    from ddsp_tpu_torch.ops.cuda import launch_counts, osc_frames, reset_launch_counts
+    from ddsp_tpu_torch.parallel import train
+
+    state = train.shard_state(case_state(case, conf, dev), mesh)
+    metrics, params, counts = [], [], []
+    grads, restore = recorded_grads()
+    try:
+        for _ in range(case["steps"]):
+            reset_launch_counts()
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            counts.append({**{k: v for k, v in launch_counts().items() if v},
+                           **osc_frames.VARIANT_LAUNCHES})
+            params.append({k: v.detach().cpu().numpy().copy()
+                           for k, v in state.params.state_dict().items()})
+    finally:
+        restore()
+    return {"metrics": metrics, "params": params, "grads": grads, "counts": counts,
+            "checksum": train.state_checksum(state).cpu().numpy()}
+
+
+def single_steps(case, starts, dev):
+    """The port's single-device train step on the case's whole batch on
+    ``dev``: [(metrics, the parameters after) of the free-running steps
+    from the case's state, (metrics, the gradients Adam took) of one step
+    from ``starts[i]`` (``Decoder`` state dicts) with step i's key]."""
+    from ddsp_tpu_torch.config import Config
+    from ddsp_tpu_torch.training import trainer
+
+    conf = Config(**case["conf"])
+    step = trainer.make_train_step(conf)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in case["batch"].items()}
+    state = case_state(case, conf, dev)
+    grads, restore = recorded_grads()
+    out = []
+    try:
+        for start in starts:
+            rng = state.rng
+            state, m = step(state, batch)
+            free = ({k: float(v) for k, v in m.items()},
+                    {k: v.detach().cpu().numpy().copy()
+                     for k, v in state.params.state_dict().items()})
+            _, m_at = step(case_state(case, conf, dev, start, rng), batch)
+            out.append((*free, {k: float(v) for k, v in m_at.items()}, grads[-1]))
+    finally:
+        restore()
+    return out
+
+
+def collectives_case(case, dev):
+    """The differentiable collectives on a time group of ``case['ranks']``:
+    {name: (this rank's loss, its gradient in x)} for each function below,
+    every loss a psum over the group, so each is the one global value
+    (their JAX twins: ``torch_parallel_refs.jax_collectives``)."""
+    from ddsp_tpu_torch.parallel import mesh as pmesh
+    from ddsp_tpu_torch.parallel.collectives import (all_gather, axis_index, axis_size,
+                                                     ppermute, psum, rank_mask)
+
+    mesh = pmesh.make_mesh(n_time=case["ranks"], ranks=range(case["ranks"]))
+    if mesh.coords is None:
+        return None
+    group = mesh.groups[pmesh.TIME_AXIS]
+    r, n = axis_index(group), axis_size(group)
+    w = torch.as_tensor(case["w"], device=dev)
+    c = torch.as_tensor(case["c"][r], device=dev)  # (n, d): this rank's weights
+    fns = {
+        "psum": lambda x: psum((w * x).sum(), group),
+        "psum_squared": lambda x: psum((w * x * x).sum(), group) ** 2,
+        "all_gather": lambda x: psum((c * all_gather(x, group)).sum(), group),
+        "ppermute_shift_edge": lambda x: psum((c[0] * torch.where(
+            rank_mask(r == 0, x), 2.0 * x,
+            ppermute(x, group, [(i, i + 1) for i in range(n - 1)]))).sum(), group),
+        "ppermute_partial": lambda x: psum((c[1] * x * ppermute(
+            x, group, [(0, 2), (3, 1)])).sum(), group),
+    }
+    out = {}
+    for name, fn in fns.items():
+        x = torch.as_tensor(case["x"][r], device=dev).requires_grad_(True)
+        loss = fn(x)
+        (g,) = torch.autograd.grad(loss, x)
+        out[name] = (float(loss.detach()), g.cpu().numpy())
+    return out
 
 
 def run_cases(rank, dev, cases):
@@ -148,3 +261,28 @@ def unsharded_render(case, conf, device):
         harm, _ = oscillator_apply(ctl, conf)
         dry = harm + noise_apply(ctl, conf, PRNGKey(case.get("key", 0), device=device))
         return reverb_apply(reverb_module(case["reverb"], conf).to(device), dry, conf).cpu().numpy()
+
+
+def sp_errors_case(case, conf, dev):
+    """{name: the ValueError's message, or None where none was raised} of
+    the DP x SP step's refusals (tests/test_torch_parallel_sp.py)."""
+    from ddsp_tpu_torch.models.convert import decoder_from_jax
+    from ddsp_tpu_torch.ops.fir import PRNGKey
+    from ddsp_tpu_torch.parallel import mesh as pmesh, sp
+
+    decoder = decoder_from_jax(case["params"], conf)
+    out = {}
+    for name, (n_data, n_time, batch) in case["meshes"].items():
+        mesh = pmesh.make_mesh(n_data=n_data, n_time=n_time, ranks=range(case["ranks"]))
+        try:
+            part = sp.shard_sp_batch(batch, mesh, device=dev)
+            sp.make_sp_loss(conf, mesh)(decoder, part, conf, PRNGKey(0))
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    try:
+        sp.make_sp_loss(conf, pmesh.make_mesh3(2, 2, 2, ranks=range(case["ranks"])))
+        out["model_axis"] = None
+    except ValueError as e:
+        out["model_axis"] = str(e)
+    return out

@@ -29,6 +29,13 @@ CONF_KW = dict(
 )
 # tests/test_parallel_pallas.py's config: the kernel's hop is a lane multiple
 PALLAS_KW = dict(CONF_KW, sample_rate=8000, hop_length=128, batch_size=4, osc_impl="pallas")
+# the sequence-parallel step: the float32 loss matmul on JAX's side, the
+# form the port computes (its torch.stft)
+SP_KW = dict(CONF_KW, loss_matmul_dtype="float32")
+# ('data', 'time') meshes of the DP x SP step: (2, 4) is
+# tests/test_parallel.py:260's; (1, 2) and (4, 2) give each axis a size-1 edge
+SP_MESHES = {"sp2x4": (2, 4), "sp1x2": (1, 2), "sp4x2": (4, 2)}
+SP_STEPS = 3
 SPAWN_TIMEOUT = 240  # seconds for one world's spawn, start-up included
 
 
@@ -58,6 +65,27 @@ def _features(b, t, seed=0):
     }
 
 
+def sp_batch(b=4, t=16):
+    """tests/test_parallel.py:266-275's batch: b rows of t frames, each
+    local time shard 16 / n_time frames of 64 samples."""
+    rng = np.random.default_rng(7)
+    return {
+        "f0": rng.uniform(100, 400, (b, t, 1)).astype(np.float32),
+        "normalized_cents": rng.uniform(0, 1, (b, t, 1)).astype(np.float32),
+        "loudness": rng.uniform(0, 1, (b, t, 1)).astype(np.float32),
+        "audio": (0.1 * rng.standard_normal((b, t * CONF_KW["hop_length"]))).astype(np.float32),
+    }
+
+
+def collective_inputs(n, d=3, seed=11):
+    """x (n, d): one row a rank; w (d,) replicated; c (n, n, d): each
+    rank's own weights."""
+    rng = np.random.default_rng(seed)
+    return {"x": rng.standard_normal((n, d)).astype(np.float32),
+            "w": rng.standard_normal(d).astype(np.float32),
+            "c": rng.standard_normal((n, n, d)).astype(np.float32)}
+
+
 def make_cases():
     """{name: case}: the rank-side inputs of every case ('ranks': its world
     size; 'kind': the entry point, tests/torch_parallel_cases.py)."""
@@ -78,6 +106,8 @@ def make_cases():
     }
     decoder_params = jax.tree_util.tree_map(np.asarray,
                                             decoder_init(jax.random.PRNGKey(0), dp_conf))
+    jparams = jax.tree_util.tree_map(np.asarray, jstate.params)
+    jrng = np.asarray(jstate.rng).astype(np.int64)
     time_case = dict(kind="time", conf=CONF_KW, controls=_controls(CONF_KW),
                      reverb=_reverb(ir, 1), key=3)
     pallas_rev = _reverb(ir, 1)
@@ -119,8 +149,17 @@ def make_cases():
                                    controls=_controls(PALLAS_KW, t=16), reverb=pallas_rev,
                                    key=3),
         "dp4": dict(kind="dp", conf=CONF_KW, ranks=4, steps=3, batch=dp_batch,
-                    params=jax.tree_util.tree_map(np.asarray, jstate.params),
-                    rng=np.asarray(jstate.rng).astype(np.int64)),
+                    params=jparams, rng=jrng),
+        **{name: dict(kind="sp", conf=SP_KW, ranks=nd * nt, n_data=nd, n_time=nt,
+                      steps=SP_STEPS, batch=sp_batch(), params=jparams, rng=jrng)
+           for name, (nd, nt) in SP_MESHES.items()},
+        "collectives4": dict(kind="collectives", conf=CONF_KW, ranks=4, **collective_inputs(4)),
+        # tests/test_parallel.py:359's short shard (8 shards of one 64-sample
+        # frame < n_fft//2 + 1 = 129), T = 18 over 4 time shards, B = 3 over
+        # 2 data shards
+        "sp_errors": dict(kind="sp_errors", conf=SP_KW, ranks=8, params=jparams, meshes={
+            "short_shard": (1, 8, sp_batch(2, 8)), "t_not_divisible": (2, 4, sp_batch(4, 18)),
+            "b_not_divisible": (2, 4, sp_batch(3, 16))}),
         "shardings": dict(kind="shardings", conf=CONF_KW, ranks=4, n_data=2, n_time=2,
                           x=np.arange(4 * 6 * 2, dtype=np.float32).reshape(4, 6, 2)),
     }
@@ -236,4 +275,70 @@ def exact_local_delta_total(f0_pad, hop, sample_rate):
     total = (tot_hi - jnp.floor(tot_hi)) + jnp.sum(delta - hi, axis=1)
     return total - jnp.floor(total)
 
+
+def jax_collectives(case):
+    """{name: (loss, its gradient in x)} of JAX's twins of
+    torch_parallel_cases.collectives_case's functions: ``jax.value_and_grad``
+    through a ``jax.shard_map`` over the case's ranks, ``out_specs=P()``
+    (each loss a psum, so one invariant value)."""
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    n = case["ranks"]
+    mesh = Mesh(np.array(jax.devices()[:n]), ("i",))
+    lax = jax.lax
+    shift = [(i, i + 1) for i in range(n - 1)]
+    bodies = {
+        "psum": lambda x, w, c: lax.psum(jnp.sum(w * x), "i"),
+        "psum_squared": lambda x, w, c: lax.psum(jnp.sum(w * x * x), "i") ** 2,
+        "all_gather": lambda x, w, c: lax.psum(jnp.sum(c * lax.all_gather(x, "i")), "i"),
+        "ppermute_shift_edge": lambda x, w, c: lax.psum(jnp.sum(c[0] * jnp.where(
+            lax.axis_index("i") == 0, 2.0 * x, lax.ppermute(x, "i", shift))), "i"),
+        "ppermute_partial": lambda x, w, c: lax.psum(jnp.sum(
+            c[1] * x * lax.ppermute(x, "i", [(0, 2), (3, 1)])), "i"),
+    }
+    x, w, c = (jnp.asarray(case[k], jnp.float32) for k in ("x", "w", "c"))
+    out = {}
+    for name, body in bodies.items():
+        f = jax.shard_map(lambda xs, w_, cs, b=body: b(xs[0], w_, cs[0]), mesh=mesh,
+                          in_specs=(P("i"), P(), P("i")), out_specs=P(), check_vma=False)
+        val, g = jax.value_and_grad(lambda x_: f(x_, w, c))(x)
+        out[name] = (float(val), np.asarray(g))
+    return out
+
+
+def jax_sp_steps(name, starts):
+    """JAX's jitted DP x SP step (``ddsp_tpu.parallel.sp``) for the case's
+    steps on the virtual mesh, on the float32 loss matmul: [(metrics, the
+    parameters after as a port ``Decoder``, the gradient of JAX's SP loss
+    at ``starts[i]`` (port ``Decoder`` state dicts) with step i's noise key
+    as a ``Decoder``)]."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from ddsp_tpu.parallel.mesh import make_mesh
+    from ddsp_tpu.parallel.sp import make_sp_loss, make_sp_train_step
+    from ddsp_tpu.training.trainer import init_state
+    from ddsp_tpu_torch.models.convert import decoder_from_state_dict, decoder_to_jax
+
+    case = cases()[name]
+    jconf, conf = JaxConfig(**case["conf"], osc_impl="xla"), Config(**case["conf"])
+    mesh = make_mesh(n_data=case["n_data"], n_time=case["n_time"],
+                     devices=jax.devices()[:case["ranks"]])
+    state = jax.device_put(init_state(jax.random.PRNGKey(0), jconf), NamedSharding(mesh, P()))
+    batch = {k: jax.device_put(v, NamedSharding(mesh, P("data", "time") if k == "audio"
+                                                 else P("data")))
+             for k, v in case["batch"].items()}
+    loss = make_sp_loss(jconf, mesh)
+    grad = jax.jit(jax.grad(lambda p, b, k: loss(p, b, jconf, k)[0]))
+    step = make_sp_train_step(jconf, mesh)
+
+    def tree(t):
+        return decoder_from_jax(jax.tree_util.tree_map(np.asarray, t), conf)
+
+    out = []
+    for start in starts:
+        at = decoder_to_jax(decoder_from_state_dict(start, conf))
+        g = grad(at, batch, jax.random.split(state.rng)[1])
+        state, m = step(state, batch)
+        out.append(({k: float(v) for k, v in m.items()}, tree(state.params), tree(g)))
+    return out
 
