@@ -185,8 +185,15 @@ Phases, each of which must pass (any failure exits non-zero):
    (``parallel.sp.make_sp_train_step``, float32 reverb backward): three
    steps on ('data' 2, 'time' 4) at global batch 16 of 2 s (43 frames a
    time shard, the reverb halo over three left shards) and one on ('data'
-   1, 'time' 8) over one 16 s example of 1,376 frames; then a nccl world
-   of one rank runs the long render and one DP step.  Each render against the
+   1, 'time' 8) over one 16 s example of 1,376 frames; the DP x TP step
+   (``parallel.tp.make_tp_train_step``, the default bf16 reverb route):
+   three steps on ('data' 2, 'model' 4) over the DP steps' batch (8 rows
+   and 45 harmonics a rank, h_start 0/45/90/135); the DP x SP x TP step
+   (``make_sp_train_step`` on ``make_mesh3(2, 2, 2)``, float32 reverb
+   backward): two steps over the SP steps' batch (86 frames a time shard,
+   the reverb halo over two left shards; 90 harmonics a rank, h_start
+   0/90); then a nccl world of one rank runs the long render and one DP
+   step.  Each render against the
    unsharded card render > 70 dB, every rank's copy equal, K1 launched
    once a rank on the rotation fill at that rank's h_start, and every
    time shard but the first entering K1 at a nonzero phase; each DP step
@@ -197,7 +204,12 @@ Phases, each of which must pass (any failure exits non-zero):
    Adam parts the two runs); each SP step held the same way, every rank's
    metrics equal, K1 and K2 launched on the rotation fill on every rank
    every step and S1 never, each rank's peak device memory a step printed
-   beside the single card's (a record, not judged); K1 at the TP shard shape (B=16, T=172, hop
+   beside the single card's (a record, not judged); each TP step held the
+   same way, on all 8 ranks metrics equal and state checksums bit-equal,
+   every K1 and K2 launch of every rank (K2's recorded at
+   ``osc_frames_bwd_windows``) on the rotation fill at that rank's own
+   h_start, at least one of each a step, S1 once a step a rank on DP x TP
+   and never on DP x SP x TP; K1 at the TP shard shape (B=16, T=172, hop
    512, H=45, h_start 135) against its plain version > 90 dB and timed.
    Wall ms per rank beside the unsharded run, printed with the card's
    name and power limit: the ranks share one card, so they are not
@@ -228,8 +240,9 @@ The line before the last is a JSON object describing each kernel (launches
 on its main path, the real-time path's launches of K5 and K1 as
 ``launches_realtime``, the reconstruction's K1 launches as
 ``launches_reconstruct`` with its timing at that shape, phase 17's
-launches of K1, K2 and S1 as ``launches_parallel`` (K1's and K2's by
-render, DP steps and SP steps) and K1 at the TP
+launches of K1, K2 and S1 as ``launches_parallel`` (K1's by render;
+K1's and K2's by DP, SP, DP x TP and DP x SP x TP steps; S1's by DP and
+DP x TP steps) and K1 at the TP
 shard shape as ``parallel_tp_shard``, agreement with its
 plain version, kernel, plain, bound and library times); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2441,6 +2454,14 @@ PAR_DP_BATCH, PAR_DP_STEPS, PAR_DP_RANKS = 16, 3, (2, 4)
 # samples a shard: one 2 s example's width a rank)
 PAR_SP_BATCH, PAR_SP_STEPS, PAR_SP_MESH = 16, 3, (2, 4)
 PAR_SP_LONG_FRAMES, PAR_SP_LONG_MESH = 1376, (1, 8)
+# the tensor-parallel steps: DP x TP (parallel/tp.make_tp_train_step) on
+# ('data' 2, 'model' 4) over the DP steps' batch on the default bf16 reverb
+# route (S1 on every rank's rows; 45 harmonics a rank at h_start
+# 0/45/90/135), and DP x SP x TP (make_sp_train_step on make_mesh3(2, 2, 2))
+# over the SP steps' batch (86 frames, 44,032 samples a time shard, so the
+# reverb halo spans two left shards; 90 harmonics a rank at h_start 0/90)
+PAR_TP_MESH, PAR_TP_STEPS = (2, 4), 3
+PAR_SP3_MESH, PAR_SP3_STEPS = (2, 2, 2), 2
 # hard limits: one spawn, start-up included; a collective's wait for a peer
 PAR_SPAWN_S, PAR_GROUP_S = 420, 120
 # the sharded renders against the unsharded card render: the JAX suite's
@@ -2480,8 +2501,8 @@ def parallel_rank(rank, dev, job):
     """One rank of phase 17: each case this rank is in, with its wall ms
     (synchronised), K1's calls (h_start, fill, the first sample's phase)
     and every hand kernel's launches (K1's and K2's also by option set),
-    counted from 0 at the case's start; a train step's also with the
-    rank's peak device bytes in it."""
+    counted from 0 at the case's start; a train step's also with K1's and
+    K2's calls (h_start, fill) and the rank's peak device bytes in it."""
     import torch
 
     from ddsp_tpu_torch.config import Config
@@ -2491,15 +2512,20 @@ def parallel_rank(rank, dev, job):
     from ddsp_tpu_torch.parallel import mesh as pmesh, render, sp, tp, train
     from ddsp_tpu_torch.training import trainer
 
-    conf, out, k1 = Config(), {}, []
+    conf, out, k1, k2 = Config(), {}, [], []
     if job["probe"]:
         out["gloo_cuda"] = probe_gloo_cuda(dev)
     launch, opt_step = osc_frames.osc_frames_fwd, trainer.AdamPlateau.step
+    launch_bwd = osc_frames.osc_frames_bwd_windows
 
     def recorded(phase, amps_pad, loud_pad, h_start=0, fill="exact", *args, **kwargs):
         k1.append(dict(h_start=int(h_start), fill=fill, shape=list(amps_pad.shape),
                        phase0=float(phase[0, 0, 0])))
         return launch(phase, amps_pad, loud_pad, h_start, fill, *args, **kwargs)
+
+    def recorded_bwd(g, phase, amps_pad, loud_pad, h_start=0, fill="exact", *args, **kwargs):
+        k2.append(dict(h_start=int(h_start), fill=fill, shape=list(amps_pad.shape)))
+        return launch_bwd(g, phase, amps_pad, loud_pad, h_start, fill, *args, **kwargs)
 
     def case(name, mesh, fn, gather=None):
         """fn() on the mesh's ranks; ``gather`` assembles rank 0's copy."""
@@ -2520,6 +2546,7 @@ def parallel_rank(rank, dev, job):
         torch.cuda.empty_cache()
 
     osc_frames.osc_frames_fwd = recorded
+    osc_frames.osc_frames_bwd_windows = recorded_bwd
     try:
         decoder = decoder_from_state_dict(job["decoder"], conf)
         key, feats = PRNGKey(conf.seed), job["features"]
@@ -2565,6 +2592,8 @@ def parallel_rank(rank, dev, job):
                         rng=state.rng.cpu().clone())
                     torch.cuda.synchronize()
                     reset_launch_counts()
+                    k1.clear()
+                    k2.clear()
                     torch.cuda.reset_peak_memory_stats(dev)
                     held = torch.cuda.memory_allocated(dev)
                     t0 = time.perf_counter()
@@ -2574,6 +2603,8 @@ def parallel_rank(rank, dev, job):
                                       metrics={k: float(v) for k, v in m.items()},
                                       counts={**{k: v for k, v in launch_counts().items() if v},
                                               **osc_frames.VARIANT_LAUNCHES},
+                                      k1=[(c["h_start"], c["fill"]) for c in k1],
+                                      k2=[(c["h_start"], c["fill"]) for c in k2],
                                       peak_bytes=torch.cuda.max_memory_allocated(dev) - held,
                                       before=before))
             finally:
@@ -2596,8 +2627,17 @@ def parallel_rank(rank, dev, job):
                                        ranks=range(n_data * n_time))
                 train_case(name, mesh, sp_conf, sp.make_sp_train_step, sp.shard_sp_batch,
                            job[key], n_steps)
+            n_data, n_model = PAR_TP_MESH
+            train_case("tp2x4", tp.make_dp_tp_mesh(n_data, n_model, ranks=range(n_data * n_model)),
+                       conf, tp.make_tp_train_step, train.shard_batch, job["dp_batch"],
+                       PAR_TP_STEPS)
+            train_case("sp3_2x2x2", pmesh.make_mesh3(*PAR_SP3_MESH,
+                                                     ranks=range(int(np.prod(PAR_SP3_MESH)))),
+                       sp_conf, sp.make_sp_train_step, sp.shard_sp_batch, job["sp_batch"],
+                       PAR_SP3_STEPS)
     finally:
         osc_frames.osc_frames_fwd = launch
+        osc_frames.osc_frames_bwd_windows = launch_bwd
     return out
 
 
@@ -2654,6 +2694,32 @@ def dp_distances(got_steps, got_grads, want, names):
     return out
 
 
+def rerun_bits(conf, batch_np, device):
+    """The card's backward twice on the same inputs (a record, not judged):
+    {'step': the worst gradient leaf's |diff| over its norm between two
+    single-card steps from one state and key, 'loss': the same for the MSS
+    loss's gradient in its prediction}.  Not 0 where a backward
+    accumulates with atomic adds, as the copies of a tensor-parallel
+    step's replicated tail do on its model ranks."""
+    import torch
+
+    from ddsp_tpu_torch.losses import mss_loss_per_scale
+    from ddsp_tpu_torch.ops.fir import PRNGKey
+    from ddsp_tpu_torch.training import trainer
+
+    state = trainer.init_state(PRNGKey(SEED), conf, device="cpu")
+    start = dict(params=state.params.state_dict(), rng=state.rng)
+    twice, _ = single_step_grads(conf, batch_np, device, 0, [start, start])
+    step = max(float((a - b).norm() / b.norm()) for a, b in zip(twice[0][1], twice[1][1]))
+    audio = torch.from_numpy(batch_np["audio"]).to(device)
+    pred = (0.5 * audio.flip(-1)).requires_grad_(True)
+    grads = [torch.autograd.grad(sum(mss_loss_per_scale(pred, audio, conf.mss_ffts, conf.mss_alpha,
+                                                        conf.mss_overlap).values()), pred)[0]
+             for _ in range(2)]
+    loss = float((grads[0] - grads[1]).norm() / grads[1].norm())
+    return dict(step=step, loss=loss)
+
+
 def check_dp(tag, dp, conf, batch_np, device, free, names):
     """Each DP step against the single-card step from the same state (the
     DP rank 0's parameters and key before it): phase 9's bf16 criterion on
@@ -2683,7 +2749,8 @@ def check_dp(tag, dp, conf, batch_np, device, free, names):
 def phase_parallel(device, smi: str):
     """The parallel layer on the card: gloo ranks sharing cuda:0 run the
     time-sharded long render, the harmonic-sharded renders, time x model
-    and the data-parallel steps, held against the unsharded card runs; a
+    and the DP, DP x SP, DP x TP and DP x SP x TP steps, held against the
+    unsharded card runs; a
     nccl world of one rank runs the render and one DP step; K1 at the TP
     shard shape against its plain version."""
     import torch
@@ -2744,6 +2811,10 @@ def phase_parallel(device, smi: str):
     sp_long_batch = feature_batch(sp_conf, 1, SEED + 20, frames=PAR_SP_LONG_FRAMES)
     sp_single = {"sp2x4": single_step_grads(sp_conf, sp_batch, device, PAR_SP_STEPS)[0],
                  "sp1x8_long": single_step_grads(sp_conf, sp_long_batch, device, 1)[0]}
+    rerun = rerun_bits(dp_conf, dp_batch, device)
+    log(f"[parallel] the card's backward twice on the same inputs (a record): the single-card "
+        f"step's worst leaf differs by {rerun['step']:.3e} of its norm, the MSS loss's gradient "
+        f"by {rerun['loss']:.3e}; {smi}")
     job = dict(decoder={k: v.cpu() for k, v in decoder.state_dict().items()},
                features={k: v.cpu().numpy() for k, v in feats.items()},
                tp_controls={k: v.cpu().numpy() for k, v in tp_controls.items()},
@@ -2767,7 +2838,8 @@ def phase_parallel(device, smi: str):
     nccl_s = time.perf_counter() - t0
     log(f"[parallel] the nccl world of one rank: {nccl_s:.1f} s, start-up included")
     note = f"{smi}; the ranks share one card, so these are not scale-out figures"
-    result = dict(spawn_s=spawn_s, nccl_s=nccl_s, gloo_cuda=ranks[0]["gloo_cuda"], cases={})
+    result = dict(spawn_s=spawn_s, nccl_s=nccl_s, gloo_cuda=ranks[0]["gloo_cuda"], cases={},
+                  rerun=rerun)
     k1_rot = osc_frames.variant_name("osc_frames_fwd", "rot")
 
     def check_render(tag, name, ref, n, world, expect_h):
@@ -2869,13 +2941,59 @@ def phase_parallel(device, smi: str):
             steps=check_dp(name, sp_ranks[0], sp_conf, batch_np, device, sp_single[name], names),
             wall_ms=walls, single_ms=[st[2] for st in sp_single[name]], peak_bytes=peaks,
             single_peak_bytes=single_peak, mesh=[n_data, n_time])
+    tp_launches = {}
+    for name, conf_, batch_np, mesh, free, n_h in (
+            ("tp2x4", dp_conf, dp_batch, PAR_TP_MESH, single, PAR_TP_MESH[1]),
+            ("sp3_2x2x2", sp_conf, sp_batch, PAR_SP3_MESH, sp_single["sp2x4"], PAR_SP3_MESH[2])):
+        n, h_local = int(np.prod(mesh)), -(-conf.n_harmonics // n_h)
+        tp_ranks = [r[name] for r in ranks[:n]]
+        counts = {"osc_frames_fwd": 0, "osc_frames_bwd": 0, "ct_conv_dsignal": 0}
+        for r, d in enumerate(tp_ranks):
+            require(np.array_equal(d["checksum"], tp_ranks[0]["checksum"]),
+                    f"{name}: rank {r}'s state differs from rank 0's after the steps")
+            h0 = (r % n_h) * h_local  # the model axis is the grid's last
+            for i, st in enumerate(d["steps"]):
+                c = st["counts"]
+                require(st["metrics"] == tp_ranks[0]["steps"][i]["metrics"],
+                        f"{name} rank {r} step {i + 1}: metrics differ from rank 0's")
+                require(c.get(k1_rot, 0) >= 1 and c.get(k2_rot, 0) >= 1
+                        and c.get("osc_frames_fwd") == c.get(k1_rot)
+                        and c.get("osc_frames_bwd") == c.get(k2_rot)
+                        and all(k == (h0, "rot") for k in st["k1"] + st["k2"])
+                        and len(st["k1"]) == c[k1_rot] and len(st["k2"]) == c[k2_rot],
+                        f"{name} rank {r} step {i + 1}: K1 calls {st['k1']}, K2 calls "
+                        f"{st['k2']}, launches {c} (K1 and K2 on rot at h_start {h0})")
+                require(c.get("ct_conv_dsignal", 0) == (1 if name == "tp2x4" else 0),
+                        f"{name} rank {r} step {i + 1}: S1 launches {c}")
+                for k in counts:
+                    counts[k] += c.get(k, 0)
+        tp_launches[name] = counts
+        walls = [[round(st["wall_ms"], 3) for st in d["steps"]] for d in tp_ranks]
+        peaks = [max(st["peak_bytes"] for st in d["steps"]) for d in tp_ranks]
+        single_peak = max(st[3] for st in free)
+        log(f"[parallel] {name}: mesh {mesh} over {batch_np['f0'].shape[0]} examples of "
+            f"{batch_np['f0'].shape[1]} frames, {len(tp_ranks[0]['steps'])} steps; replicas' "
+            f"state checksums bit-equal on all {n} ranks, metrics equal; K1, K2 h_start by rank "
+            f"{[sorted({k[0] for st in d['steps'] for k in st['k1'] + st['k2']}) for d in tp_ranks]}"
+            f", launches a step by rank K1 {[[st['counts'].get(k1_rot) for st in d['steps']] for d in tp_ranks]}"
+            f", K2 {[[st['counts'].get(k2_rot) for st in d['steps']] for d in tp_ranks]}"
+            f", S1 {[[st['counts'].get('ct_conv_dsignal', 0) for st in d['steps']] for d in tp_ranks]}"
+            f"; wall ms a step by rank {walls}, single card {[round(st[2], 3) for st in free]}; "
+            f"peak device MB a step by rank {[round(p / 2**20, 1) for p in peaks]}, single card "
+            f"{single_peak / 2**20:.1f} (above what each held before the step; a record, not "
+            f"judged); {note}")
+        result["cases"][name] = dict(
+            steps=check_dp(name, tp_ranks[0], conf_, batch_np, device, free, names),
+            wall_ms=walls, single_ms=[st[2] for st in free], peak_bytes=peaks,
+            single_peak_bytes=single_peak, mesh=list(mesh))
     renders = ("long", "halo", "tp4", "tp8", "time_tp")
     k1_launches = sum(r[c]["counts"].get("osc_frames_fwd", 0)
                       for r in ranks + [nccl] for c in r if c in renders)
     for k in launches:
         launches[k] += nd["steps"][0]["counts"].get(k, 0)
     result["launches"] = dict(launches, osc_frames_fwd_renders=k1_launches,
-                              sp_steps=sp_launches)
+                              sp_steps=sp_launches, tp_steps=tp_launches["tp2x4"],
+                              sp3_steps=tp_launches["sp3_2x2x2"])
 
     # K1 at the TP shard shape (B=16, T=172, hop 512, H=45, h_start 135):
     # the last quarter of a bank normalised over all its harmonics, as
@@ -3197,11 +3315,15 @@ def main() -> int:
     k1["reconstruct_shape"] = recon["k1"]
     k1["launches_parallel"] = {"renders": par["launches"]["osc_frames_fwd_renders"],
                                "dp_steps": par["launches"]["osc_frames_fwd"],
-                               "sp_steps": par["launches"]["sp_steps"]["osc_frames_fwd"]}
+                               "sp_steps": par["launches"]["sp_steps"]["osc_frames_fwd"],
+                               "tp_steps": par["launches"]["tp_steps"]["osc_frames_fwd"],
+                               "sp3_steps": par["launches"]["sp3_steps"]["osc_frames_fwd"]}
     k1["parallel_tp_shard"] = par["k1_tp_shard"]
     k2 = next(k for k in kernels if k["name"] == "osc_frames_bwd")
     k2["launches_parallel"] = {"dp_steps": par["launches"]["osc_frames_bwd"],
-                               "sp_steps": par["launches"]["sp_steps"]["osc_frames_bwd"]}
+                               "sp_steps": par["launches"]["sp_steps"]["osc_frames_bwd"],
+                               "tp_steps": par["launches"]["tp_steps"]["osc_frames_bwd"],
+                               "sp3_steps": par["launches"]["sp3_steps"]["osc_frames_bwd"]}
     kernels.append(dict(
         name="osc_frames_overlap_add", route="cuda", source="ddsp_tpu_torch/csrc/osc_frames.cu",
         replaces="ddsp_tpu/ops/pallas/oscillator.py:777", tpu_function="_kernel_banked2_bwd "
@@ -3238,7 +3360,9 @@ def main() -> int:
         launches=train_launches["ct_conv_dsignal"],
         launches_finetune_cli=ft_launches["ct_conv_dsignal"],
         library="torch.fft.irfft(torch.fft.rfft(g) * conj(H)): the float32 cuFFT correlation",
-        launches_parallel=par["launches"]["ct_conv_dsignal"], **s1["ct_conv_dsignal"]))
+        launches_parallel={"dp_steps": par["launches"]["ct_conv_dsignal"],
+                           "tp_steps": par["launches"]["tp_steps"]["ct_conv_dsignal"]},
+        **s1["ct_conv_dsignal"]))
     for name, entry in variants.items():
         if name in ("osc_frames_fwd", "osc_frames_bwd"):
             continue  # the default K1/K2: their entries above

@@ -6,9 +6,11 @@ a process, so:
 
 * :func:`make_mesh` / :func:`make_mesh3` lay ranks out on a grid with
   named axes ('data', 'time', 'model') and open one process group per
-  line of the grid along each axis; the :class:`Mesh` a rank gets holds
-  its coordinate, the axis sizes, its group along each axis and the group
-  of the whole mesh.  Every rank of the job calls them, in the same order
+  line of the grid along each axis, and on a 3-axis mesh one per plane
+  of each pair of axes; the :class:`Mesh` a rank gets holds its
+  coordinate, the axis sizes, its group along each axis and over each
+  pair (:meth:`Mesh.group_over`) and the group of the whole mesh.  Every
+  rank of the job calls them, in the same order
   (``torch.distributed.new_group`` is collective), ranks outside the grid
   included; those get a mesh with no coordinate;
 * :func:`replicated`, :func:`batch_sharding` and :func:`time_sharding`
@@ -24,6 +26,7 @@ a process, so:
 from __future__ import annotations
 
 import datetime
+import itertools
 import os
 from typing import Dict, Optional, Sequence
 
@@ -47,6 +50,7 @@ class Mesh:
     ``shape``: {axis: size}.  ``coords``: {axis: this rank's index}, or
     None for a rank outside the grid.  ``groups``: {axis: this rank's
     process group along that axis}.  ``group``: the whole mesh's group.
+    Groups over several axes: :meth:`group_over`.
     """
 
     def __init__(self, grid: np.ndarray, axis_names: Sequence[str]):
@@ -63,11 +67,31 @@ class Mesh:
                 group = dist.new_group(ranks=[int(r) for r in line])
                 if rank in line:
                     self.groups[name] = group
+        # one group per plane of each pair of axes, on meshes of 3 axes
+        self._pair_groups = {}
+        for pair in itertools.combinations(range(grid.ndim), 2) if grid.ndim > 2 else ():
+            planes = np.moveaxis(grid, pair, (-2, -1)).reshape(
+                -1, grid.shape[pair[0]] * grid.shape[pair[1]])
+            for plane in planes:
+                group = dist.new_group(ranks=[int(r) for r in plane])
+                if rank in plane:
+                    self._pair_groups[frozenset(self.axis_names[a] for a in pair)] = group
         self.group = dist.new_group(ranks=[int(r) for r in grid.flat])
 
     @property
     def size(self) -> int:
         return self.grid.size
+
+    def group_over(self, axes: Sequence[str]):
+        """This rank's process group over ``axes`` together (the ranks that
+        share its coordinates on every other axis): one axis's line, a
+        pair's plane, or all of the mesh's axes, the whole mesh."""
+        axes = frozenset(axes)
+        if axes == frozenset(self.axis_names):
+            return self.group
+        if len(axes) == 1:
+            return self.groups[next(iter(axes))]
+        return self._pair_groups[axes]
 
     def require_member(self) -> None:
         if self.coords is None:

@@ -21,7 +21,9 @@ differentiable (the sequence-parallel loss, ``sp.py``, trains through it):
 its selects between a neighbour's frames and a rank's own are
 ``torch.where`` on a rank mask, so every rank issues the same backward
 collectives.  The renders, :func:`render_controls_sharded` and
-:func:`render_long_audio`, run under ``torch.no_grad``.
+:func:`render_long_audio`, run under ``torch.no_grad``.  The harmonic
+bank's sharding over a 'model' axis, :func:`bank_slice` and
+:func:`tp_harmonics`, is shared with ``tp.py`` and ``sp.py``.
 """
 
 from __future__ import annotations
@@ -38,10 +40,11 @@ from ddsp_tpu_torch.ops.fir import fft_convolve, filtered_noise
 from ddsp_tpu_torch.ops.interp import hop_weight_cumsum_on
 from ddsp_tpu_torch.ops.oscillator import QUANT, nyquist_normalized_amps, render_padded
 from ddsp_tpu_torch.parallel.collectives import (all_gather, axis_index, axis_size, ppermute,
-                                                 psum, rank_mask)
-from ddsp_tpu_torch.parallel.mesh import TIME_AXIS, Mesh, time_sharding
+                                                 psum, pvary, rank_mask)
+from ddsp_tpu_torch.parallel.mesh import MODEL_AXIS, TIME_AXIS, Mesh, time_sharding
 
 CONTROL_KEYS = ("f0", "c", "a", "H")
+FEATURE_KEYS = ("f0", "normalized_cents", "loudness")
 
 
 def _neighbor_frame(x: torch.Tensor, direction: int, group) -> torch.Tensor:
@@ -110,18 +113,47 @@ def _local_delta_total(f0_pad: torch.Tensor, hop: int, sample_rate: int) -> torc
     return total - torch.floor(total)
 
 
+def bank_slice(c: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This model rank's contiguous slice of the harmonic bank ``c``
+    (..., H), zero-padded to a multiple of the 'model' axis.
+
+    The whole padded bank enters through :func:`pvary` over 'model' and
+    is sliced after it: rank r's gradient of the bank is then nonzero only
+    in its slice, and the backward sum assembles every slice on every
+    rank (a ``pvary`` on the slice would add different harmonics).  The
+    pad's backward drops the padded channels' gradient."""
+    n_model = mesh.shape[MODEL_AXIS]
+    c = pvary(F.pad(c, (0, (-c.shape[-1]) % n_model)), mesh.groups[MODEL_AXIS])
+    h_local = c.shape[-1] // n_model
+    h0 = mesh.coords[MODEL_AXIS] * h_local
+    return c[..., h0:h0 + h_local]
+
+
 def tp_harmonics(f0_pad: torch.Tensor, amps_pad: torch.Tensor, loud_pad: torch.Tensor,
                  conf: Config, model_group, fill: str,
                  initial_phase: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The harmonic audio of a bank sharded over ``model_group``, on every
-    rank of it: ``amps_pad`` is this rank's contiguous slice, rendered at
-    its ``h_start``; the Nyquist renormalisation's denominator (a sum over
-    every harmonic) and the partial audio are the two values summed over
-    the group (``parallel/tp.py``'s convention)."""
+    rank of it: ``amps_pad`` is this rank's contiguous slice
+    (:func:`bank_slice`), rendered at its ``h_start``.
+
+    The Nyquist renormalisation's denominator (a sum over every harmonic)
+    and the partial audio are the two values summed over the group
+    (``parallel/tp.py``'s convention), with JAX's transposes: f0, the
+    loudness and the carried phase, the same on every rank, enter this
+    rank's slice through :func:`pvary`, and so does the denominator, an
+    invariant sum that scales each rank's own harmonics; the partial
+    audio's sum feeds what every rank computes alike (noise, reverb,
+    loss), so its cotangent is the same on every rank and its ``psum``
+    passes it on.  The parameter gradients behind it come out equal on
+    every model rank, and a step reduces them over the other axes only.
+    """
     h0 = axis_index(model_group) * amps_pad.shape[-1]
+    f0_pad, loud_pad = pvary(f0_pad, model_group), pvary(loud_pad, model_group)
+    if initial_phase is not None:
+        initial_phase = pvary(initial_phase, model_group)
     masked = nyquist_normalized_amps(f0_pad, amps_pad, conf.sample_rate, h_start=h0,
                                      normalize=False)
-    denom = psum(masked.sum(dim=-1, keepdim=True), model_group)
+    denom = pvary(psum(masked.sum(dim=-1, keepdim=True), model_group), model_group)
     partial, _ = render_padded(
         f0_pad, masked / denom, loud_pad, sample_rate=conf.sample_rate, hop=conf.hop_length,
         initial_phase=initial_phase, h_start=h0, normalize_amps=False, fill=fill)
@@ -148,7 +180,7 @@ def render_controls_local(
     halo, the phase carry and the reverb halo are collectives over
     ``mesh.groups[TIME_AXIS]``).  ``reverb`` is the decoder's
     ``Reverb`` module.  With ``model_axis``, ``amps`` is this rank's
-    contiguous slice of the harmonic bank, rendered by
+    contiguous slice of the harmonic bank (:func:`bank_slice`), rendered by
     :func:`tp_harmonics` (f0 is the same on every model rank, so is the
     carry).  ``impl`` ('xla' | 'pallas' | 'auto', None = ``conf.osc_impl``)
     picks the sine fill as ``models/synths.osc_fill`` does: on the card
@@ -253,7 +285,7 @@ def render_long_audio(
     dev = resolve_device(device)
     decoder = decoder.to(dev)
     feats = {k: torch.as_tensor(batch[k], dtype=torch.float32, device=dev)
-             for k in ("f0", "normalized_cents", "loudness")}
+             for k in FEATURE_KEYS}
     controls, _ = controller_apply(decoder.controller, feats,
                                    compute_dtype=compute_dtype_of(conf.compute_dtype))
     return render_controls_sharded(decoder.reverb, controls, conf, mesh, noise_key,

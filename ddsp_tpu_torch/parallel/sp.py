@@ -21,7 +21,14 @@ trains as one example:
 * **backward**: ordinary autograd through the differentiable collectives
   (``collectives.py``); K2 on the card.  Every rank's loss is the global
   one, so each rank's parameter gradients are its share of the global
-  gradient, and the step sums them over the mesh.
+  gradient, and the step sums them over ('data', 'time').
+
+On a ('data', 'time', 'model') mesh (``mesh.make_mesh3``) the step is DP
+x SP x TP: the harmonic bank is also sharded over 'model'
+(``render.bank_slice``, ``render.tp_harmonics``, with their ``pvary``
+transposes), each rank renders its slice of its frames, and every model
+rank ends with the same gradients, so the loss and the gradients are
+summed over ('data', 'time') only, never over 'model'.
 """
 
 from __future__ import annotations
@@ -37,11 +44,12 @@ from ddsp_tpu_torch.models.nn import compute_dtype_of
 from ddsp_tpu_torch.ops.spectral import _window
 from ddsp_tpu_torch.parallel.collectives import (axis_index, axis_size, ppermute, psum,
                                                  rank_mask)
-from ddsp_tpu_torch.parallel.mesh import DATA_AXIS, TIME_AXIS, Mesh, time_sharding
-from ddsp_tpu_torch.parallel.render import CONTROL_KEYS, render_controls_local
+from ddsp_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, TIME_AXIS, Mesh, time_sharding
+from ddsp_tpu_torch.parallel.render import (CONTROL_KEYS, FEATURE_KEYS, bank_slice,
+                                            render_controls_local)
+from ddsp_tpu_torch.parallel.train import sum_over
 from ddsp_tpu_torch.training.trainer import make_train_step
 
-FEATURE_KEYS = ("f0", "normalized_cents", "loudness")
 EPS = 1e-7  # the MSS loss's log floor (losses.sss_loss)
 
 
@@ -95,9 +103,9 @@ def _sharded_sss_sums(pred: torch.Tensor, true: torch.Tensor, n_fft: int, hop: i
 
 
 def _check_mesh(mesh: Mesh) -> None:
-    if set(mesh.shape) != {DATA_AXIS, TIME_AXIS}:
-        raise ValueError(f"the sequence-parallel step takes a ('data', 'time') mesh, got axes "
-                         f"{mesh.axis_names}")
+    if set(mesh.shape) not in ({DATA_AXIS, TIME_AXIS}, {DATA_AXIS, TIME_AXIS, MODEL_AXIS}):
+        raise ValueError(f"the sequence-parallel step takes a ('data', 'time') or ('data', "
+                         f"'time', 'model') mesh, got axes {mesh.axis_names}")
     mesh.require_member()
 
 
@@ -108,11 +116,14 @@ def make_sp_loss(conf: Config, mesh: Mesh):
     ``batch`` is this rank's part of the global batch as
     :func:`shard_sp_batch` places it: the features of this data rank's
     rows over the whole T, the audio of those rows over this time rank's
-    samples.  Every rank returns the global batch's loss.
+    samples.  Every rank returns the global batch's loss.  With a 'model'
+    axis, each rank renders its slice of the harmonic bank.
     """
     _check_mesh(mesh)
     n_data, n_time = mesh.shape[DATA_AXIS], mesh.shape[TIME_AXIS]
     time_group = mesh.groups[TIME_AXIS]
+    model_axis = MODEL_AXIS if MODEL_AXIS in mesh.shape else None
+    sum_group = mesh.group_over((DATA_AXIS, TIME_AXIS))
 
     def sp_loss(params, batch: Dict[str, torch.Tensor], conf_: Config, noise_key):
         del conf_  # bound at construction; kept for the signature
@@ -122,15 +133,17 @@ def make_sp_loss(conf: Config, mesh: Mesh):
         t_local = t_total // n_time
         controls, _ = controller_apply(params.controller, {k: batch[k] for k in FEATURE_KEYS},
                                        compute_dtype=compute_dtype_of(conf.compute_dtype))
+        if model_axis is not None:
+            controls = dict(controls, c=bank_slice(controls["c"], mesh))
         ctl = {k: time_sharding(controls[k], mesh) for k in CONTROL_KEYS}
         pred = render_controls_local(
             params.reverb, ctl["f0"], ctl["c"], ctl["a"], ctl["H"], noise_key, conf, t_local,
-            mesh, row_offset=mesh.coords[DATA_AXIS] * b_local)
+            mesh, model_axis=model_axis, row_offset=mesh.coords[DATA_AXIS] * b_local)
         hops = [int(n_fft * (1 - conf.mss_overlap)) for n_fft in conf.mss_ffts]
         sums = torch.stack([s for n_fft, hop in zip(conf.mss_ffts, hops)
                             for s in _sharded_sss_sums(pred, batch["audio"], n_fft, hop,
                                                        time_group)])
-        sums = psum(sums, mesh.group)  # every scale's sums in one all_reduce
+        sums = psum(sums, sum_group)  # every scale's sums in one all_reduce
         length = batch["audio"].shape[-1] * n_time
         scales = {}
         for i, (n_fft, hop) in enumerate(zip(conf.mss_ffts, hops)):
@@ -144,7 +157,8 @@ def make_sp_loss(conf: Config, mesh: Mesh):
 def shard_sp_batch(batch: Dict, mesh: Mesh, device="cuda") -> Dict[str, torch.Tensor]:
     """This rank's part of a global batch, on ``device``: the features'
     rows over 'data' (every frame), the audio's rows over 'data' and its
-    samples over 'time' (JAX's ``P('data')`` and ``P('data', 'time')``)."""
+    samples over 'time' (JAX's ``P('data')`` and ``P('data', 'time')``),
+    both replicated over 'model' where the mesh has it."""
     dev = resolve_device(device)
     _check_mesh(mesh)
     n, idx = mesh.shape[DATA_AXIS], mesh.coords[DATA_AXIS]
@@ -163,17 +177,19 @@ def make_sp_train_step(conf: Config, mesh: Mesh, device="cuda"):
 
     Place the inputs with ``train.shard_state`` and :func:`shard_sp_batch`.
     The optimizer and metrics are ``trainer.make_train_step``'s; only the
-    loss is swapped, and the parameter gradients are summed over the mesh
-    (each rank's loss is already the global one, so its gradients are its
-    share of the global gradient: neither a mean nor a sum of the loss).
-    Every rank returns the same state and metrics, those of the global
-    batch's single-device step to float32 accuracy.
+    loss is swapped, and the parameter gradients are summed over ('data',
+    'time') (each rank's loss is already the global one, so its gradients
+    are its share of the global gradient: neither a mean nor a sum of the
+    loss; on a 3-axis mesh every model rank holds the same share, and the
+    first model rank's copy is summed, ``train.sum_over``).  Every rank
+    returns the same state and metrics, those of the global batch's
+    single-device step to float32 accuracy.
     """
     resolve_device(device)
     loss = make_sp_loss(conf, mesh)
 
     def reduce(loss_val, scales, grads):
-        flat = psum(torch.cat([g.reshape(-1) for g in grads]), mesh.group)
+        flat = sum_over(torch.cat([g.reshape(-1) for g in grads]), mesh, (DATA_AXIS, TIME_AXIS))
         return loss_val, scales, [f.view_as(g) for f, g in
                                   zip(flat.split([g.numel() for g in grads]), grads)]
 

@@ -20,14 +20,15 @@ checks that the replicas agree.
 from __future__ import annotations
 
 import functools
-from typing import Dict
+import math
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from ddsp_tpu_torch.config import Config
 from ddsp_tpu_torch.device import resolve_device
 from ddsp_tpu_torch.models.controller import decoder_apply
-from ddsp_tpu_torch.parallel.collectives import all_gather, psum
+from ddsp_tpu_torch.parallel.collectives import all_gather, psum, rank_mask
 from ddsp_tpu_torch.parallel.mesh import Mesh, _row_shard, batch_sharding, replicated
 from ddsp_tpu_torch.training.trainer import TrainState, loss_fn, make_train_step
 
@@ -60,20 +61,37 @@ def shard_state(state: TrainState, mesh: Mesh) -> TrainState:
 
 
 def shard_batch(batch: Dict, mesh: Mesh, device="cuda") -> Dict[str, torch.Tensor]:
-    """This rank's rows of every array in ``batch``, on ``device``; the
-    batch size must divide by the mesh size."""
+    """This rank's rows of every array in ``batch``, on ``device``: the
+    rows split over the mesh's 'data' and 'time' axes, replicated over
+    'model'; the batch size must divide by that split."""
     dev = resolve_device(device)
     return {k: batch_sharding(torch.as_tensor(v, device=dev), mesh) for k, v in batch.items()}
 
 
+def sum_over(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes``, on every rank of the
+    mesh, in one ``all_reduce`` over the whole mesh.  The mesh's other
+    axes hold copies of one value (the gradients of a tensor-parallel
+    step's model ranks): only the copy of their first rank enters the sum,
+    the others add zeros, so every rank ends with the same bits.  On the
+    card the copies differ in their last bits: the MSS loss's backward
+    (``torch.stft``'s reflect pad and overlapping frames) accumulates with
+    atomic adds, whose order varies.  For the reductions after the
+    backward: under autograd the other copies would take no cotangent."""
+    first = all(mesh.coords[a] == 0 for a in mesh.axis_names if a not in axes)
+    return psum(torch.where(rank_mask(first, x), x, torch.zeros_like(x)), mesh.group)
+
+
 def all_reduce_mean(mesh: Mesh, loss: torch.Tensor, scales: Dict[str, torch.Tensor],
-                    grads):
-    """(loss, per-scale terms, gradients) averaged over the mesh's ranks in
-    one ``all_reduce``."""
+                    grads, axes: Optional[Sequence[str]] = None):
+    """(loss, per-scale terms, gradients) averaged over the ranks of
+    ``axes`` (None: the whole mesh) in one ``all_reduce``; a copy along
+    the other axes is taken once (:func:`sum_over`)."""
+    axes = mesh.axis_names if axes is None else axes
     names = sorted(scales)
     flat = torch.cat([loss.reshape(1)] + [scales[k].detach().reshape(1) for k in names]
                      + [g.reshape(-1) for g in grads])
-    flat = psum(flat, mesh.group) / mesh.size
+    flat = sum_over(flat, mesh, axes) / math.prod(mesh.shape[a] for a in axes)
     out, at = [], 1 + len(names)
     for g in grads:
         out.append(flat[at:at + g.numel()].view_as(g))

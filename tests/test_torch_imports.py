@@ -25,10 +25,11 @@ from ddsp_tpu_torch.models.crepe import crepe_init
 from ddsp_tpu_torch.data import dataset
 from ddsp_tpu_torch.experiments import dream, style_transfer
 from ddsp_tpu_torch.ops.fir import PRNGKey
-from ddsp_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+from ddsp_tpu_torch.parallel.mesh import initialize_distributed, make_mesh, make_mesh3
 from ddsp_tpu_torch.parallel.render import render_long_audio
 from ddsp_tpu_torch.parallel.sp import make_sp_train_step, shard_sp_batch
-from ddsp_tpu_torch.parallel.tp import decoder_apply_tp, make_dp_tp_mesh, render_controls_tp
+from ddsp_tpu_torch.parallel.tp import (decoder_apply_tp, make_dp_tp_mesh, make_tp_train_step,
+                                        render_controls_tp)
 from ddsp_tpu_torch.parallel.train import make_parallel_train_step, shard_batch, shard_state
 from ddsp_tpu_torch.runtime import server
 from ddsp_tpu_torch.data.audio_io import write_wav
@@ -203,7 +204,8 @@ def _features(conf, n=4):
     "fit", "init_state", "extract_features", "train_cli",
     "finetune", "init_finetune_state", "finetune_cli", "reconstruct_cli",
     "reconstruct_file", "initialize_distributed", "render_long_audio", "render_controls_tp",
-    "make_parallel_train_step", "make_sp_train_step", "style_transfer_spec", "style_transfer_audio",
+    "make_parallel_train_step", "make_sp_train_step", "make_tp_train_step", "style_transfer_spec",
+    "style_transfer_audio",
     "style_transfer_cli", "dream", "dream_file", "dream_cli",
 ])
 def test_entry_points_raise_without_cuda(no_cuda, entry, tmp_path):
@@ -250,6 +252,8 @@ def test_entry_points_raise_without_cuda(no_cuda, entry, tmp_path):
             make_parallel_train_step(CONF, None)
         elif entry == "make_sp_train_step":
             make_sp_train_step(CONF, None)
+        elif entry == "make_tp_train_step":
+            make_tp_train_step(CONF, None)
         elif entry == "style_transfer_spec":
             spec = np.zeros((257, 20), np.float32)
             style_transfer.style_transfer_spec(spec, spec, style_transfer.StyleTransferConfig())
@@ -336,6 +340,14 @@ def test_parallel_entry_points_run_on_explicit_cpu(no_cuda, tmp_path):
         step = make_sp_train_step(conf, mesh, device="cpu")
         state, sp_metrics = step(state, shard_sp_batch(feats, mesh, device="cpu"))
         assert state.step == 2 and torch.isfinite(sp_metrics["loss"])
+        mesh = make_dp_tp_mesh(1, 1)
+        step = make_tp_train_step(conf, mesh, device="cpu")
+        state, tp_metrics = step(state, shard_batch(feats, mesh, device="cpu"))
+        assert state.step == 3 and torch.isfinite(tp_metrics["loss"])
+        mesh = make_mesh3(1, 1, 1)
+        step = make_sp_train_step(conf, mesh, device="cpu")
+        state, sp3_metrics = step(state, shard_sp_batch(feats, mesh, device="cpu"))
+        assert state.step == 4 and torch.isfinite(sp3_metrics["loss"])
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

@@ -9,10 +9,13 @@ every subprocess has a hard timeout, so no test can hang the suite.
   frames) and agree with the single-process decode at > 70 dB, the JAX
   suite's floor (measured 131.2 dB);
 * four processes take three DP x SP steps (``parallel.sp``) on a ('data'
-  2, 'time' 2) mesh (the counterpart of tests/test_multihost.py:99): every
-  process's losses equal and its state checksum bit-equal, and the losses
-  those of the single-process step within 1e-5 relative (measured 7.2e-8
-  at the first step, 0 at the next two);
+  2, 'time' 2) mesh (the counterpart of tests/test_multihost.py:99), and
+  three DP x TP steps (``parallel.tp.make_tp_train_step``) on a ('data'
+  2, 'model' 2) mesh (the counterpart of tests/test_multihost.py:169):
+  every process's losses equal and its state checksum bit-equal, and the
+  losses those of the single-process step within 1e-5 relative (SP:
+  measured 7.2e-8 at the first step, 0 at the next two; TP: 0, 8.1e-8
+  and 1.8e-7);
 * one rank exits between two all-reduces: the survivor raises instead of
   hanging, within its 10 s group timeout (measured 0.016 s: gloo sees the
   dead peer's connection reset);
@@ -92,14 +95,14 @@ def test_two_process_time_sharded_render(tmp_path):
     assert _snr(want, got) > 70.0, _snr(want, got)
 
 
-def test_four_process_sp_steps_match_single_process(tmp_path):
+def _four_process_steps_match_single_process(mode, tmp_path):
     sys.path.insert(0, os.path.dirname(WORKER))
     import torch_multihost_worker as worker
     from ddsp_tpu_torch.config import Config
     from ddsp_tpu_torch.ops.fir import PRNGKey
     from ddsp_tpu_torch.training.trainer import init_state, make_train_step
 
-    results = _launch("sp", tmp_path, world=4)
+    results = _launch(mode, tmp_path, world=4)
     for rc, _, log in results:
         assert rc == 0, log[-3000:]
     got = [d for _, d, _ in results]
@@ -113,6 +116,14 @@ def test_four_process_sp_steps_match_single_process(tmp_path):
         state, metrics = step(state, batch)
         want = float(metrics["loss"])
         assert abs(loss - want) <= 1e-5 * abs(want), (i, loss, want)
+
+
+def test_four_process_sp_steps_match_single_process(tmp_path):
+    _four_process_steps_match_single_process("sp", tmp_path)
+
+
+def test_four_process_tp_steps_match_single_process(tmp_path):
+    _four_process_steps_match_single_process("tp", tmp_path)
 
 
 def test_killed_rank_fails_its_survivor(tmp_path):

@@ -10,6 +10,8 @@ Usage: python torch_multihost_worker.py <rank> <world> <init_method> <out.pt> <m
   'time' 2) mesh of 4 processes, from ``trainer.init_state(PRNGKey(0))``
   on every process, over :func:`sp_batch`; every rank writes its losses
   and its state checksum.
+* ``tp``: the same three steps as DP x TP (``parallel.tp.
+  make_tp_train_step``) on a ('data' 2, 'model' 2) mesh of 4 processes.
 * ``crash``: one all-reduce, then rank 1 exits (code 17) while rank 0
   waits in a second all-reduce with a short group timeout; rank 0 writes
   what it raised and how long that took.
@@ -55,19 +57,24 @@ def sp_batch():
                 np.float32)}
 
 
-def run_sp(dev):
+def run_steps(dev, mode):
     from ddsp_tpu_torch.config import Config
     from ddsp_tpu_torch.ops.fir import PRNGKey
     from ddsp_tpu_torch.parallel.mesh import make_mesh
     from ddsp_tpu_torch.parallel.sp import make_sp_train_step, shard_sp_batch
-    from ddsp_tpu_torch.parallel.train import shard_state, state_checksum
+    from ddsp_tpu_torch.parallel.tp import make_dp_tp_mesh, make_tp_train_step
+    from ddsp_tpu_torch.parallel.train import shard_batch, shard_state, state_checksum
     from ddsp_tpu_torch.training.trainer import init_state
 
     conf = Config(**SP_KW)
-    mesh = make_mesh(n_data=2, n_time=2)
+    if mode == "sp":
+        mesh = make_mesh(n_data=2, n_time=2)
+        step, shard = make_sp_train_step(conf, mesh, device=dev), shard_sp_batch
+    else:
+        mesh = make_dp_tp_mesh(n_data=2, n_model=2)
+        step, shard = make_tp_train_step(conf, mesh, device=dev), shard_batch
     state = shard_state(init_state(PRNGKey(0), conf, device=dev), mesh)
-    step = make_sp_train_step(conf, mesh, device=dev)
-    batch = shard_sp_batch(sp_batch(), mesh, device=dev)
+    batch = shard(sp_batch(), mesh, device=dev)
     losses = []
     for _ in range(SP_STEPS):
         state, metrics = step(state, batch)
@@ -87,8 +94,8 @@ def main(rank: int, world: int, init_method: str, out: str, mode: str) -> None:
     torch.set_num_threads(1)
     dev = initialize_distributed(init_method, world, rank, backend="gloo",
                                  timeout=GROUP_TIMEOUT, device="cpu")
-    if mode == "sp":
-        torch.save(run_sp(dev), out)
+    if mode in ("sp", "tp"):
+        torch.save(run_steps(dev, mode), out)
         dist.barrier()
         dist.destroy_process_group()
         return

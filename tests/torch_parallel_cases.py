@@ -73,18 +73,29 @@ def _case(case, dev):
             reverb_module(case["reverb"], conf), case["controls"], conf, mesh, key,
             impl=case.get("impl"), device=dev)
         return _full_time(local, mesh)
-    if kind in ("dp", "sp"):
-        mesh = pmesh.make_mesh(n_data=case.get("n_data", case["ranks"]),
-                               n_time=case.get("n_time", 1), ranks=ranks)
+    if kind in ("dp", "sp", "tp_train"):
+        n_data = case.get("n_data", case["ranks"])
+        if kind == "tp_train":
+            mesh = tp.make_dp_tp_mesh(n_data=n_data, n_model=case["ranks"] // n_data,
+                                      ranks=ranks)
+        elif "n_model" in case:
+            mesh = pmesh.make_mesh3(n_data, case["n_time"], case["n_model"], ranks=ranks)
+        else:
+            mesh = pmesh.make_mesh(n_data=n_data, n_time=case.get("n_time", 1), ranks=ranks)
         if mesh.coords is None:
             return None
-        if kind == "dp":
-            step = train.make_parallel_train_step(conf, mesh, device=dev)
-            batch = train.shard_batch(case["batch"], mesh, device=dev)
-        else:
+        if kind == "sp":
             step = sp.make_sp_train_step(conf, mesh, device=dev)
             batch = sp.shard_sp_batch(case["batch"], mesh, device=dev)
+        else:
+            make = train.make_parallel_train_step if kind == "dp" else tp.make_tp_train_step
+            step = make(conf, mesh, device=dev)
+            batch = train.shard_batch(case["batch"], mesh, device=dev)
         return train_steps(case, conf, mesh, step, batch, dev)
+    if kind == "tp_grad":
+        return tp_grad_case(case, conf, dev)
+    if kind == "tp_errors":
+        return tp_errors_case(case, conf, dev)
     if kind == "shardings":
         mesh = pmesh.make_mesh(n_data=case["n_data"], n_time=case["n_time"], ranks=ranks)
         if mesh.coords is None:
@@ -186,37 +197,48 @@ def single_steps(case, starts, dev):
     return out
 
 
+# the collectives' functions differentiated in w (replicated) rather than x
+W_GRADS = ("pvary",)
+
+
 def collectives_case(case, dev):
     """The differentiable collectives on a time group of ``case['ranks']``:
-    {name: (this rank's loss, its gradient in x)} for each function below,
-    every loss a psum over the group, so each is the one global value
-    (their JAX twins: ``torch_parallel_refs.jax_collectives``)."""
+    {name: (this rank's loss, its gradient in x, or in w for the names in
+    ``W_GRADS``)} for each function below, every loss a psum over the
+    group, so each is the one global value (their JAX twins:
+    ``torch_parallel_refs.jax_collectives``)."""
     from ddsp_tpu_torch.parallel import mesh as pmesh
     from ddsp_tpu_torch.parallel.collectives import (all_gather, axis_index, axis_size,
-                                                     ppermute, psum, rank_mask)
+                                                     ppermute, psum, pvary, rank_mask)
 
     mesh = pmesh.make_mesh(n_time=case["ranks"], ranks=range(case["ranks"]))
     if mesh.coords is None:
         return None
     group = mesh.groups[pmesh.TIME_AXIS]
     r, n = axis_index(group), axis_size(group)
-    w = torch.as_tensor(case["w"], device=dev)
     c = torch.as_tensor(case["c"][r], device=dev)  # (n, d): this rank's weights
     fns = {
-        "psum": lambda x: psum((w * x).sum(), group),
-        "psum_squared": lambda x: psum((w * x * x).sum(), group) ** 2,
-        "all_gather": lambda x: psum((c * all_gather(x, group)).sum(), group),
-        "ppermute_shift_edge": lambda x: psum((c[0] * torch.where(
+        "psum": lambda x, w: psum((w * x).sum(), group),
+        "psum_squared": lambda x, w: psum((w * x * x).sum(), group) ** 2,
+        "all_gather": lambda x, w: psum((c * all_gather(x, group)).sum(), group),
+        "ppermute_shift_edge": lambda x, w: psum((c[0] * torch.where(
             rank_mask(r == 0, x), 2.0 * x,
             ppermute(x, group, [(i, i + 1) for i in range(n - 1)]))).sum(), group),
-        "ppermute_partial": lambda x: psum((c[1] * x * ppermute(
+        "ppermute_partial": lambda x, w: psum((c[1] * x * ppermute(
             x, group, [(0, 2), (3, 1)])).sum(), group),
+        # a replicated value entering each rank's own product
+        "pvary": lambda x, w: psum((c[0] * pvary(w, group) * x).sum(), group),
+        # an invariant sum scaling each rank's own values (the TP render's
+        # Nyquist denominator)
+        "pvary_psum": lambda x, w: psum((c[1] * x * pvary(
+            psum((w * x).sum(), group), group)).sum(), group),
     }
     out = {}
     for name, fn in fns.items():
-        x = torch.as_tensor(case["x"][r], device=dev).requires_grad_(True)
-        loss = fn(x)
-        (g,) = torch.autograd.grad(loss, x)
+        x = torch.as_tensor(case["x"][r], device=dev).requires_grad_(name not in W_GRADS)
+        w = torch.as_tensor(case["w"], device=dev).requires_grad_(name in W_GRADS)
+        loss = fn(x, w)
+        (g,) = torch.autograd.grad(loss, w if name in W_GRADS else x)
         out[name] = (float(loss.detach()), g.cpu().numpy())
     return out
 
@@ -268,7 +290,7 @@ def sp_errors_case(case, conf, dev):
     the DP x SP step's refusals (tests/test_torch_parallel_sp.py)."""
     from ddsp_tpu_torch.models.convert import decoder_from_jax
     from ddsp_tpu_torch.ops.fir import PRNGKey
-    from ddsp_tpu_torch.parallel import mesh as pmesh, sp
+    from ddsp_tpu_torch.parallel import mesh as pmesh, sp, tp
 
     decoder = decoder_from_jax(case["params"], conf)
     out = {}
@@ -280,9 +302,72 @@ def sp_errors_case(case, conf, dev):
             out[name] = None
         except ValueError as e:
             out[name] = str(e)
-    try:
-        sp.make_sp_loss(conf, pmesh.make_mesh3(2, 2, 2, ranks=range(case["ranks"])))
-        out["model_axis"] = None
-    except ValueError as e:
-        out["model_axis"] = str(e)
+    out["data_model_mesh"] = _refusal(lambda: sp.make_sp_loss(
+        conf, tp.make_dp_tp_mesh(2, case["ranks"] // 2, ranks=range(case["ranks"]))))
     return out
+
+
+def _refusal(fn):
+    """The ValueError's message of ``fn()``, or None where none was raised."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def tp_grad_case(case, conf, dev):
+    """The harmonic-sharded render's gradient on a ('data', 'model') mesh:
+    {'grads': [d/dc, d/da, d/dH, d/d reverb noise, decay, wet]} of the
+    global loss sum(render * w), each rank's gradient of its rows' part
+    summed over 'data' (the global gradient, on every rank)."""
+    from ddsp_tpu_torch.ops.fir import PRNGKey
+    from ddsp_tpu_torch.parallel import mesh as pmesh, tp
+    from ddsp_tpu_torch.parallel.collectives import psum
+
+    n_data = case.get("n_data", 1)
+    mesh = tp.make_dp_tp_mesh(n_data=n_data, n_model=case["ranks"] // n_data,
+                              ranks=range(case["ranks"]))
+    if mesh.coords is None:
+        return None
+    reverb = reverb_module(case["reverb"], conf).to(dev)
+    ctl = {k: torch.as_tensor(v, device=dev) for k, v in case["controls"].items()}
+    leaves = [ctl[k].requires_grad_(True) for k in ("c", "a", "H")]
+    leaves += [reverb.noise, reverb.decay, reverb.wet]
+    rows = {k: tp._rows(v, mesh) for k, v in ctl.items()}
+    row_offset = mesh.coords[pmesh.DATA_AXIS] * rows["f0"].shape[0]
+    out = tp._render_tp_rows(reverb, rows, conf, mesh, PRNGKey(case["key"], device=dev), None,
+                             row_offset)
+    loss = (out * tp._rows(torch.as_tensor(case["w"], device=dev), mesh)).sum()
+    grads = torch.autograd.grad(loss, leaves)
+    return {"grads": [psum(g, mesh.groups[pmesh.DATA_AXIS]).cpu().numpy() for g in grads]}
+
+
+def tp_errors_case(case, conf, dev):
+    """{name: the ValueError's message, or None} of the tensor-parallel
+    steps' refusals on ``case['ranks']`` ranks (8): B not divisible by
+    'data', a 3-axis time shard too short for the STFT halo, a ('data',
+    'model') mesh given to the SP loss, a mesh without 'model' given to
+    the TP step."""
+    from ddsp_tpu_torch.models.convert import decoder_from_jax
+    from ddsp_tpu_torch.ops.fir import PRNGKey
+    from ddsp_tpu_torch.parallel import mesh as pmesh, sp, tp, train
+
+    ranks = range(case["ranks"])
+    decoder = decoder_from_jax(case["params"], conf).to(dev)
+    dp_tp = tp.make_dp_tp_mesh(2, 4, ranks=ranks)
+    mesh3 = pmesh.make_mesh3(1, 4, 2, ranks=ranks)
+    dp = pmesh.make_mesh(n_data=case["ranks"], ranks=ranks)
+
+    def short_shard():
+        part = sp.shard_sp_batch(case["short_batch"], mesh3, device=dev)
+        sp.make_sp_loss(conf, mesh3)(decoder, part, conf, PRNGKey(0, device=dev))
+
+    def b_not_divisible():
+        step = tp.make_tp_train_step(conf, dp_tp, device=dev)
+        step(None, train.shard_batch(case["odd_batch"], dp_tp, device=dev))
+
+    return {"b_not_divisible": _refusal(b_not_divisible),
+            "short_shard_3axis": _refusal(short_shard),
+            "data_model_mesh_sp": _refusal(lambda: sp.make_sp_loss(conf, dp_tp)),
+            "no_model_axis_tp": _refusal(lambda: tp.make_tp_train_step(conf, dp, device=dev))}

@@ -36,6 +36,12 @@ SP_KW = dict(CONF_KW, loss_matmul_dtype="float32")
 # tests/test_parallel.py:260's; (1, 2) and (4, 2) give each axis a size-1 edge
 SP_MESHES = {"sp2x4": (2, 4), "sp1x2": (1, 2), "sp4x2": (4, 2)}
 SP_STEPS = 3
+# the tensor-parallel steps (tests/test_torch_parallel_tp_train.py): DP x TP
+# on ('data' 2, 'model' 4) at 16 harmonics and on (2, 2) at 15 (the bank
+# padded to 16), DP x SP x TP on make_mesh3(2, 2, 2) (tests/test_parallel.py:308)
+TP_STEPS = {"tp2x4": ((2, 4), 16), "tp2x2_h15": ((2, 2), 15), "sp3_2x2x2": ((2, 2, 2), 16)}
+# the TP render's gradient: ('data' 2, 'model' 2) and 'model' 4
+TP_GRADS = {"tp_grad_2x2": 2, "tp_grad_4": 1}
 SPAWN_TIMEOUT = 240  # seconds for one world's spawn, start-up included
 
 
@@ -84,6 +90,39 @@ def collective_inputs(n, d=3, seed=11):
     return {"x": rng.standard_normal((n, d)).astype(np.float32),
             "w": rng.standard_normal(d).astype(np.float32),
             "c": rng.standard_normal((n, n, d)).astype(np.float32)}
+
+
+def _jax_state(conf_kw):
+    """JAX's ``init_state(PRNGKey(0))`` at the config: (parameters as numpy,
+    the key as int64)."""
+    from ddsp_tpu.training.trainer import init_state
+
+    jstate = init_state(jax.random.PRNGKey(0), JaxConfig(**conf_kw))
+    return (jax.tree_util.tree_map(np.asarray, jstate.params),
+            np.asarray(jstate.rng).astype(np.int64))
+
+
+def tp_train_cases():
+    """The tensor-parallel steps' cases (tests/test_torch_parallel_tp_train.py)."""
+    out = {}
+    for name, (mesh, n_h) in TP_STEPS.items():
+        conf = dict(SP_KW, n_harmonics=n_h)
+        params, rng = _jax_state(conf)
+        common = dict(conf=conf, ranks=int(np.prod(mesh)), n_data=mesh[0], steps=SP_STEPS,
+                      batch=sp_batch(), params=params, rng=rng)
+        out[name] = (dict(common, kind="sp", n_time=mesh[1], n_model=mesh[2]) if len(mesh) == 3
+                     else dict(common, kind="tp_train"))
+    ir = CONF_KW["reverb_length"]
+    for name, n_data in TP_GRADS.items():
+        controls = _controls(CONF_KW, b=2, t=32, seed=6)
+        w = np.random.default_rng(8).standard_normal((2, 32 * CONF_KW["hop_length"]))
+        out[name] = dict(kind="tp_grad", conf=CONF_KW, ranks=4, n_data=n_data,
+                         controls=controls, w=w.astype(np.float32),
+                         reverb=_reverb(ir, 9, normal=True, decay=2.0), key=3)
+    # T = 8 over 4 time shards: 128 samples < n_fft//2 + 1 = 129; B = 3 over 2
+    out["tp_errors"] = dict(kind="tp_errors", conf=SP_KW, ranks=8, params=_jax_state(SP_KW)[0],
+                            short_batch=sp_batch(2, 8), odd_batch=sp_batch(3, 16))
+    return out
 
 
 def make_cases():
@@ -162,6 +201,7 @@ def make_cases():
             "b_not_divisible": (2, 4, sp_batch(3, 16))}),
         "shardings": dict(kind="shardings", conf=CONF_KW, ranks=4, n_data=2, n_time=2,
                           x=np.arange(4 * 6 * 2, dtype=np.float32).reshape(4, 6, 2)),
+        **tp_train_cases(),
     }
 
 
@@ -277,16 +317,24 @@ def exact_local_delta_total(f0_pad, hop, sample_rate):
 
 
 def jax_collectives(case):
-    """{name: (loss, its gradient in x)} of JAX's twins of
-    torch_parallel_cases.collectives_case's functions: ``jax.value_and_grad``
-    through a ``jax.shard_map`` over the case's ranks, ``out_specs=P()``
-    (each loss a psum, so one invariant value)."""
+    """{name: (loss, its gradient in x, or in w for
+    ``torch_parallel_cases.W_GRADS``)} of JAX's twins of
+    torch_parallel_cases.collectives_case's functions:
+    ``jax.value_and_grad`` through a ``jax.shard_map`` over the case's
+    ranks, ``out_specs=P()`` (each loss a psum, so one invariant value).
+    The ``pvary`` functions run with ``check_vma=True``, where JAX tracks
+    which values vary by rank and transposes ``pvary`` (here by its new
+    name, ``pcast(..., to='varying')``) into a ``psum``."""
     from jax.sharding import Mesh, PartitionSpec as P
 
     n = case["ranks"]
     mesh = Mesh(np.array(jax.devices()[:n]), ("i",))
     lax = jax.lax
     shift = [(i, i + 1) for i in range(n - 1)]
+
+    def pvary(v):
+        return lax.pcast(v, "i", to="varying")
+
     bodies = {
         "psum": lambda x, w, c: lax.psum(jnp.sum(w * x), "i"),
         "psum_squared": lambda x, w, c: lax.psum(jnp.sum(w * x * x), "i") ** 2,
@@ -295,41 +343,60 @@ def jax_collectives(case):
             lax.axis_index("i") == 0, 2.0 * x, lax.ppermute(x, "i", shift))), "i"),
         "ppermute_partial": lambda x, w, c: lax.psum(jnp.sum(
             c[1] * x * lax.ppermute(x, "i", [(0, 2), (3, 1)])), "i"),
+        "pvary": lambda x, w, c: lax.psum(jnp.sum(c[0] * pvary(w) * x), "i"),
+        "pvary_psum": lambda x, w, c: lax.psum(jnp.sum(
+            c[1] * x * pvary(lax.psum(jnp.sum(pvary(w) * x), "i"))), "i"),
     }
     x, w, c = (jnp.asarray(case[k], jnp.float32) for k in ("x", "w", "c"))
     out = {}
     for name, body in bodies.items():
         f = jax.shard_map(lambda xs, w_, cs, b=body: b(xs[0], w_, cs[0]), mesh=mesh,
-                          in_specs=(P("i"), P(), P("i")), out_specs=P(), check_vma=False)
-        val, g = jax.value_and_grad(lambda x_: f(x_, w, c))(x)
+                          in_specs=(P("i"), P(), P("i")), out_specs=P(),
+                          check_vma=name.startswith("pvary"))
+        if name in torch_parallel_cases.W_GRADS:
+            val, g = jax.value_and_grad(lambda w_: f(x, w_, c))(w)
+        else:
+            val, g = jax.value_and_grad(lambda x_: f(x_, w, c))(x)
         out[name] = (float(val), np.asarray(g))
     return out
 
 
-def jax_sp_steps(name, starts):
-    """JAX's jitted DP x SP step (``ddsp_tpu.parallel.sp``) for the case's
-    steps on the virtual mesh, on the float32 loss matmul: [(metrics, the
-    parameters after as a port ``Decoder``, the gradient of JAX's SP loss
-    at ``starts[i]`` (port ``Decoder`` state dicts) with step i's noise key
+def jax_train_steps(name, starts):
+    """JAX's jitted step for the case's steps on the virtual mesh, on the
+    float32 loss matmul: the DP x SP step (``ddsp_tpu.parallel.sp``) on a
+    ('data', 'time') mesh or a ``make_mesh3`` one, or the DP x TP step
+    (``ddsp_tpu.parallel.tp.make_tp_train_step``).  [(metrics, the
+    parameters after as a port ``Decoder``, the gradient of JAX's loss at
+    ``starts[i]`` (port ``Decoder`` state dicts) with step i's noise key
     as a ``Decoder``)]."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from ddsp_tpu.parallel.mesh import make_mesh
+    from ddsp_tpu.parallel import tp as jtp
+    from ddsp_tpu.parallel.mesh import make_mesh, make_mesh3
     from ddsp_tpu.parallel.sp import make_sp_loss, make_sp_train_step
-    from ddsp_tpu.training.trainer import init_state
+    from ddsp_tpu.training.trainer import init_state, loss_fn
     from ddsp_tpu_torch.models.convert import decoder_from_state_dict, decoder_to_jax
 
     case = cases()[name]
     jconf, conf = JaxConfig(**case["conf"], osc_impl="xla"), Config(**case["conf"])
-    mesh = make_mesh(n_data=case["n_data"], n_time=case["n_time"],
-                     devices=jax.devices()[:case["ranks"]])
+    devices = jax.devices()[:case["ranks"]]
+    if case["kind"] == "tp_train":
+        mesh = jtp.make_dp_tp_mesh(case["n_data"], case["ranks"] // case["n_data"],
+                                   devices=devices)
+        loss = functools.partial(loss_fn, decode=lambda p, b, c, k: jtp.decoder_apply_tp(
+            p, b, c, mesh, k))
+        step = jtp.make_tp_train_step(jconf, mesh)
+    else:
+        mesh = (make_mesh3(case["n_data"], case["n_time"], case["n_model"], devices=devices)
+                if "n_model" in case else
+                make_mesh(n_data=case["n_data"], n_time=case["n_time"], devices=devices))
+        loss = make_sp_loss(jconf, mesh)
+        step = make_sp_train_step(jconf, mesh)
     state = jax.device_put(init_state(jax.random.PRNGKey(0), jconf), NamedSharding(mesh, P()))
-    batch = {k: jax.device_put(v, NamedSharding(mesh, P("data", "time") if k == "audio"
-                                                 else P("data")))
+    batch = {k: jax.device_put(v, NamedSharding(mesh, P("data", "time") if (
+        k == "audio" and case["kind"] == "sp") else P("data")))
              for k, v in case["batch"].items()}
-    loss = make_sp_loss(jconf, mesh)
     grad = jax.jit(jax.grad(lambda p, b, k: loss(p, b, jconf, k)[0]))
-    step = make_sp_train_step(jconf, mesh)
 
     def tree(t):
         return decoder_from_jax(jax.tree_util.tree_map(np.asarray, t), conf)
@@ -342,3 +409,95 @@ def jax_sp_steps(name, starts):
         out.append(({k: float(v) for k, v in m.items()}, tree(state.params), tree(g)))
     return out
 
+
+# the step tests' criteria (tests/test_torch_parallel_sp.py,
+# tests/test_torch_parallel_tp_train.py)
+LOSS_RTOL, GRAD_NORM_RTOL, LEAF_RTOL = 1e-5, 5e-5, 2e-3
+PARAM_RTOL, PARAM_ATOL = 2e-3, 2e-5
+
+
+def _close(got, want, rtol, what):
+    assert abs(got - want) <= rtol * abs(want), (what, got, want)
+
+
+def check_train_steps(name, ranks):
+    """Hold a case's parallel steps (every rank's results) to JAX's jitted
+    step and the port's single-device step, each free-running from the
+    same state, and each step's gradient leaves, before Adam, to JAX's
+    gradient and the single step's from the same parameters and key:
+    every rank's metrics equal and its state checksum bit-equal; loss and
+    terms within LOSS_RTOL relative, ``grad_norm`` within GRAD_NORM_RTOL;
+    each leaf within LEAF_RTOL of its norm; the parameters after each
+    step at allclose(PARAM_RTOL, PARAM_ATOL)."""
+    case = cases()[name]
+    conf = Config(**case["conf"])
+    assert len(ranks) == case["ranks"]
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r["checksum"], ranks[0]["checksum"])
+        assert r["metrics"] == ranks[0]["metrics"]
+    got = ranks[0]
+    init = decoder_from_jax(case["params"], conf)
+    names = [k for k, _ in init.named_parameters()]
+    starts = [init.state_dict()] + [{k: torch.from_numpy(v) for k, v in p.items()}
+                                    for p in got["params"][:-1]]
+    jax_steps = jax_train_steps(name, starts)
+    single = torch_parallel_cases.single_steps(case, starts, "cpu")
+    for i, ((jm, jparams, jgrads), (fm, fparams, _, sgrads)) in enumerate(zip(jax_steps, single)):
+        m = got["metrics"][i]
+        assert set(m) == set(jm) == set(fm), (set(m), set(jm), set(fm))
+        for want, tag in ((jm, "jax"), (fm, "single")):
+            for k in m:
+                rtol = GRAD_NORM_RTOL if k == "grad_norm" else LOSS_RTOL
+                _close(m[k], want[k], rtol, f"step {i} {k} vs {tag}")
+        for want, tag in (([p.detach().numpy() for p in jgrads.parameters()], "jax"),
+                          (sgrads, "single")):
+            for k, g, w in zip(names, got["grads"][i], want):
+                diff = np.linalg.norm(np.asarray(g, np.float64) - w)
+                assert diff <= LEAF_RTOL * np.linalg.norm(w), (i, k, tag, diff, np.linalg.norm(w))
+        for want, tag in (({k: v.numpy() for k, v in jparams.state_dict().items()}, "jax"),
+                          (fparams, "single")):
+            for k, v in want.items():
+                np.testing.assert_allclose(got["params"][i][k], v, rtol=PARAM_RTOL,
+                                           atol=PARAM_ATOL, err_msg=f"step {i} {k} vs {tag}")
+
+
+RENDER_GRAD_NAMES = ("c", "a", "H", "reverb.noise", "reverb.decay", "reverb.wet")
+
+
+def jax_tp_render_grads(name):
+    """``jax.grad`` of sum(render * w) through JAX's ``render_controls_tp``
+    on the case's mesh, in the controls c, a, H and the reverb
+    parameters, run eagerly as the JAX suite runs the render."""
+    from ddsp_tpu.parallel import tp as jtp
+
+    case = cases()[name]
+    conf, n = JaxConfig(**case["conf"]), case["ranks"]
+    mesh = jtp.make_dp_tp_mesh(n_data=case["n_data"], n_model=n // case["n_data"],
+                               devices=jax.devices()[:n])
+    key = jax.random.PRNGKey(case["key"])
+    ctl = {k: jnp.asarray(v) for k, v in case["controls"].items()}
+    rev = {k: jnp.asarray(v) for k, v in case["reverb"].items()}
+    w = jnp.asarray(case["w"])
+
+    def loss(c, a, h, rev_):
+        out = jtp.render_controls_tp(rev_, dict(ctl, c=c, a=a, H=h), conf, mesh, key)
+        return jnp.sum(out * w)
+
+    gc, ga, gh, grev = jax.grad(loss, argnums=(0, 1, 2, 3))(ctl["c"], ctl["a"], ctl["H"], rev)
+    return [np.asarray(g) for g in (gc, ga, gh, grev["noise"], grev["decay"], grev["wet"])]
+
+
+def port_unsharded_render_grads(name):
+    """The same gradients of the port's unsharded render on the CPU."""
+    from ddsp_tpu_torch.models.synths import noise_apply, oscillator_apply, reverb_apply
+
+    case = cases()[name]
+    conf = Config(**case["conf"])
+    ctl = {k: torch.from_numpy(v) for k, v in case["controls"].items()}
+    leaves = [ctl[k].requires_grad_(True) for k in ("c", "a", "H")]
+    reverb = torch_parallel_cases.reverb_module(case["reverb"], conf)
+    leaves += [reverb.noise, reverb.decay, reverb.wet]
+    harm, _ = oscillator_apply(ctl, conf)
+    out = reverb_apply(reverb, harm + noise_apply(ctl, conf, PRNGKey(case["key"])), conf)
+    grads = torch.autograd.grad((out * torch.from_numpy(case["w"])).sum(), leaves)
+    return [g.numpy() for g in grads]
