@@ -235,6 +235,23 @@ Phases, each of which must pass (any failure exits non-zero):
    activation norm must rise; the first 3 iterations card vs CPU > 80 dB
    (at this length lr 10 magnifies float noise to ~94 dB even between
    two CPU runs) and the norm within 1e-5; ms an iteration printed.
+19. the measurement layer (``utils/profiling.py``, ``utils/roofline.py``)
+   at full width: the serving frontier (``utils/multistream_frontier``) at
+   256, 1024 and 2048 slots, one pass, ``target_s`` 0.5: each N's median
+   wall ms a hop and its feedback chain's ms a hop beside K5's bound, K5
+   launched exactly once a step it ran and only on the rotation fill; the
+   many-client socket drive (``utils/server_drive`` at its defaults: 16
+   clients, 32 slots, 12 hops, 2 sessions): no error, every session
+   complete, finite and in order, each session equal to its slot in a
+   fresh server (so a reused slot starts fresh), K5 once a device step on
+   rot; the GRU's recurrence step at batch 16 from a CUDA graph of 172
+   steps beside ``roofline.GRU_STEP_LATENCY_S``; ``roofline.
+   train_step_bound_s(Config(), 16)`` by stage beside phase 7's median
+   step and a profiled step's busy ms by range
+   (``utils/profile_training``), K1, K2 and S1 once a step; and the card's
+   backward twice on one input (``rerun_bits``) plainly and under
+   ``profiling.deoptimized()``, the ops the deterministic mode warned
+   about printed, its settings required restored after it.
 
 The line before the last is a JSON object describing each kernel (launches
 on its main path, the real-time path's launches of K5 and K1 as
@@ -263,6 +280,10 @@ import time
 
 import numpy as np
 
+from ddsp_tpu_torch.utils import roofline
+from ddsp_tpu_torch.utils.profiling import (card_name, deoptimized, device_events, graph_ms,
+                                            kernel_durations_ns, microbench)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 N_SLOTS = 256
@@ -282,27 +303,7 @@ SLOT_ATOL = 1e-5
 # output; K5 and the reverb compute a row alike at any batch size).  So
 # this comparison is held at twice that.
 SLOT_BATCH_ATOL = 2e-5
-# H100 SXM peaks at 700 W (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3 bandwidth.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-# Cheapest known evaluation of one (sample, harmonic) point, counted from
-# K7 (csrc/osc_cheb.cu), which holds > 90 dB against float64 at full width
-# (phase 11): the recurrence (one multiply, one subtract), two window
-# multiply-adds (hop % 256 == 0), and two exact sines every 32 harmonics,
-# each ~24 FLOP (the split phase's 7 operations, sinf's reduction and
-# polynomial): 2 + 4 + 48/32 = 7.5 FLOP.  The bound of K1, K5 and K7.
-FLOP_PER_POINT = 7.5
-# The frame backward per point: the (sin, cos) rotation, the seed
-# amortised, and three window sums each for harm, the phase derivative
-# and the window-amplitude gradient: 14 FMAs, 28 FLOP.
-FLOP_PER_POINT_BWD = 28
 GRAD_SNR_FLOOR_DB = 80.0
-# K6 and S2 per point: the rotation of a (sine, cosine) pair (4 multiplies,
-# 2 adds) and its exact seeds amortised (~1.5 FLOP) at the fp32 peak; K6's
-# three contractions, 2 FLOP x 3 windows each, at the bf16 dense peak.
-FILL_FLOP_PER_POINT = 7.5
-K6_MMA_FLOP_PER_POINT = 18
 # Phase 11: bf16 variants against their plain versions, and against the
 # float64 oracle (one bf16 pass measures ~54 dB, docs/PERFORMANCE.md:425).
 BF16_PLAIN_FLOOR_DB, BF16_F64_FLOOR_DB, BF16_COS = 60.0, 45.0, 0.9999
@@ -319,11 +320,9 @@ LOSS_ATOL, LOSS_RTOL = 1e-2, 1e-6
 # leaf holding a millionth of the gradient cannot fail on rounding alone;
 # the 1e-3 is test_torch_training.py's grad_norm tolerance against JAX.
 GRAD_RTOL, GRAD_FLOOR = 1e-3, 1e-6
-# The power-STFT kernels: bf16 tensor-core peak of the H100 SXM at 700 W
-# (NVIDIA data sheet, dense); the training shape (B, samples) and the six
-# MSS sizes at hop n_fft/4; a ragged shape; the backward's criterion, the
-# JAX suite's for its bf16 kernel (tests/test_pallas_stft.py:52-58).
-PEAK_BF16_FLOPS = 989e12
+# The power-STFT kernels: the training shape (B, samples) and the six MSS
+# sizes at hop n_fft/4; a ragged shape; the backward's criterion, the JAX
+# suite's for its bf16 kernel (tests/test_pallas_stft.py:52-58).
 STFT_FFTS = (2048, 1024, 512, 256, 128, 64)
 STFT_TRAIN = (16, 88064)
 STFT_RAGGED, STFT_RAGGED_FFTS = (3, 5000), (256, 64)
@@ -375,10 +374,6 @@ RECON_AUDIO_FLOOR_DB = 100.0
 RECON_REVERB_WET = -6.0
 # the WAV's step: |16-bit sample - the float written| stays below it
 WAV_STEP = 2.0 / 32768
-# K1's rot issue-slot floor at the training shape (16 x 172 x 512 =
-# 1,409,024 samples, PERF.md section 6), scaled by samples: an estimate,
-# not a measurement
-K1_ROT_FLOOR_MS, K1_ROT_FLOOR_SAMPLES = 0.0991, 1409024
 
 
 def log(msg: str) -> None:
@@ -397,47 +392,6 @@ def snr_db(ref: np.ndarray, est: np.ndarray) -> float:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
-
-
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls captured in one CUDA
-    graph and replayed: the kernels' time without their Python wrapper's
-    host time, which bounds ``cuda_ms`` for calls shorter than it."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def build_kernels():
@@ -479,13 +433,6 @@ def kernel_inputs(n: int, hop: int, h: int, device, seed: int):
     return tensors + [torch.as_tensor(hop_weights(hop), device=device)]
 
 
-def kernel_bound_ms(n: int, hop: int, h: int):
-    flops = FLOP_PER_POINT * n * hop * h
-    n_bytes = 4 * (n * hop + 3 * n * h + 3 * n + 3 * hop + n * hop)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, n_bytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
 def phase_kernel(device):
     """K5 on the card's default fill (the rotation fill of ``_kernel_banked``)
     against its plain version on that fill at 256, 1024 and 2048 serving
@@ -510,11 +457,12 @@ def phase_kernel(device):
             require(snr > KERNEL_SNR_FLOOR_DB,
                     f"kernel ({fill}) vs plain SNR {snr:.2f} dB <= {KERNEL_SNR_FLOOR_DB} at "
                     f"{(n, hop, h)}")
-            kernel_ms = cuda_ms(lambda: osc_cuda.osc_hop_slots(*inputs, fill=fill), iters=200)
+            kernel_ms = microbench(lambda: osc_cuda.osc_hop_slots(*inputs, fill=fill), (),
+                                   iters=200, warmup=3)["ms"]
             in_graph_ms = graph_ms(lambda: osc_cuda.osc_hop_slots(*inputs, fill=fill), iters=200)
-            plain_ms = cuda_ms(
-                lambda: osc_cuda.render_hop_slots_plain(*inputs, fill=fill), iters=10)
-            bound_ms, bound_by = kernel_bound_ms(n, hop, h)
+            plain_ms = microbench(lambda: osc_cuda.render_hop_slots_plain(*inputs, fill=fill),
+                                  (), iters=10, warmup=3)["ms"]
+            bound_ms, bound_by = roofline.kernel_bound_ms(n, hop, h)
             log(f"[kernel] N={n} hop={hop} H={h} fill={fill}: SNR {snr:.2f} dB, max |err| "
                 f"{err:.3e}, kernel {kernel_ms:.5f} ms a call ({in_graph_ms:.5f} ms in a CUDA "
                 f"graph), plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by})")
@@ -700,24 +648,6 @@ def frame_operands(b: int, t: int, hop: int, h: int, h_start: int, device, seed:
     return [torch.tensor(a, dtype=torch.float32, device=device) for a in arrays]
 
 
-def frame_bounds_ms(b: int, t: int, hop: int, h: int):
-    """(forward, backward, overlap-add) bounds: each a (ms, "operations" |
-    "bytes")."""
-    points = b * t * hop * h
-    samples, rows = b * t * hop, b * (t + 2)
-    fwd_bytes = 4 * (samples + rows * h + rows + 3 * hop + samples)
-    # in: g, phase, amps_pad, loud_pad, w; out: dphase, d amps_pad, d loud_pad
-    bwd_bytes = 4 * (2 * samples + rows * h + rows + 3 * hop + samples + rows * h + rows)
-    # in: da_win, dl_win; out: d amps_pad, d loud_pad (two adds an output)
-    oa_bytes, oa_flop = 4 * (b * t * 3 * (h + 1) + rows * (h + 1)), 2 * rows * (h + 1)
-    out = []
-    for flop, n_bytes in ((FLOP_PER_POINT * points, fwd_bytes),
-                          (FLOP_PER_POINT_BWD * points, bwd_bytes), (oa_flop, oa_bytes)):
-        t_ops, t_bytes = flop / PEAK_FP32_FLOPS, n_bytes / PEAK_BYTES_PER_S
-        out.append((1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"))
-    return out
-
-
 def ptxas_report(name: str) -> dict:
     """{kernel: {registers, spill_stores, spill_loads, stack}} from the
     ``-Xptxas -v`` report of ``csrc/<name>.cu``'s build, the kernels named
@@ -819,24 +749,25 @@ def phase_frames(device):
         bwd_alone = lambda: osc_frames.osc_frames_bwd_windows(  # noqa: E731
             g, phase, amps, loud, h_start, fill="rot")
         oa = lambda: osc_frames.osc_overlap_add(da_win, dl_win, t)  # noqa: E731
-        fwd_ms, bwd_ms = cuda_ms(fwd, iters=20), cuda_ms(bwd, iters=20)
-        alone_ms, oa_ms = cuda_ms(bwd_alone, iters=20), cuda_ms(oa, iters=20)
+        fwd_ms, bwd_ms, alone_ms, oa_ms = (microbench(f, (), iters=20, warmup=3)["ms"]
+                                           for f in (fwd, bwd, bwd_alone, oa))
         fwd_graph, bwd_graph = graph_ms(fwd, iters=20), graph_ms(bwd, iters=20)
         alone_graph, oa_graph = graph_ms(bwd_alone, iters=20), graph_ms(oa, iters=20)
-        exact_ms = [cuda_ms(lambda: osc_frames.osc_frames_fwd(phase, amps, loud, h_start),
-                            iters=20),
-                    cuda_ms(lambda: osc_frames.osc_frames_bwd(g, phase, amps, loud, h_start),
-                            iters=20)]
-        plain_ms = cuda_ms(
+        exact_ms = [microbench(lambda: osc_frames.osc_frames_fwd(phase, amps, loud, h_start),
+                               (), iters=20, warmup=3)["ms"],
+                    microbench(lambda: osc_frames.osc_frames_bwd(g, phase, amps, loud, h_start),
+                               (), iters=20, warmup=3)["ms"]]
+        plain_ms = microbench(
             lambda: osc_frames.render_from_phase_variant_plain(phase, amps, loud, h_start, "rot"),
-            iters=3, warmup=1)
-        plain_bwd_ms = cuda_ms(
+            (), iters=3, warmup=1)["ms"]
+        plain_bwd_ms = microbench(
             lambda: osc_frames.render_from_phase_bwd_variant_plain(
-                g, phase, amps, loud, h_start, "rot"), iters=3, warmup=1)
-        oa_plain_ms = cuda_ms(lambda: osc_frames.overlap_add_windows(da_win, dl_win, t), iters=20)
+                g, phase, amps, loud, h_start, "rot"), (), iters=3, warmup=1)["ms"]
+        oa_plain_ms = microbench(lambda: osc_frames.overlap_add_windows(da_win, dl_win, t), (),
+                                 iters=20, warmup=3)["ms"]
         oa_library = overlap_add_library(da_win, dl_win, t)
-        oa_library_ms = cuda_ms(oa_library, iters=20)
-        (fb_ms, fb_by), (bb_ms, bb_by), (ob_ms, ob_by) = frame_bounds_ms(b, t, hop, h)
+        oa_library_ms = microbench(oa_library, (), iters=20, warmup=3)["ms"]
+        (fb_ms, fb_by), (bb_ms, bb_by), (ob_ms, ob_by) = roofline.frame_bounds_ms(b, t, hop, h)
         log(f"[frames] {shape}: forward SNR {fwd_snr:.2f} dB, max |err| {fwd_err:.3e}, "
             f"kernel {fwd_ms:.5f} ms a call, {fwd_graph:.5f} in a graph, plain "
             f"{plain_ms:.5f} ms, bound {fb_ms:.5f} ms ({fb_by})")
@@ -1089,25 +1020,6 @@ def stft_operands(b: int, length: int, n_fft: int, device, seed: int):
             torch.tensor(dmag, dtype=torch.float32, device=device))
 
 
-def stft_bounds_ms(b: int, n_blocks: int, hop: int, n_frames: int, n_fft: int):
-    """(forward, backward) bounds of the kernels as ``StftPower`` runs them,
-    on the bf16 copy of xb, each (ms, "operations" | "bytes"): the
-    forward's 4 B T n_fft bins flops (re and im products) at the bf16
-    tensor-core peak, or its bytes (bf16 xb and matrices in, float32 |S|^2
-    out); the backward twice the flops (the re/im recompute and the
-    transposed products), reading bf16 xb and matrices and float32 dmag,
-    writing float32 dxb."""
-    bins = n_fft // 2 + 1
-    flops = 4 * b * n_frames * n_fft * bins
-    samples, mag_bytes, w_bytes = b * n_blocks * hop, 4 * b * n_frames * bins, 2 * 2 * n_fft * bins
-    out = []
-    for f, n_bytes in ((flops, 2 * samples + w_bytes + mag_bytes),
-                       (2 * flops, (2 + 4) * samples + w_bytes + mag_bytes)):
-        t_ops, t_bytes = f / PEAK_BF16_FLOPS, n_bytes / PEAK_BYTES_PER_S
-        out.append((1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"))
-    return out
-
-
 def check_stft(device, b: int, length: int, n_fft: int, seed: int):
     """K3 and K4 against their plain versions at one shape; returns the
     operands and the agreement numbers."""
@@ -1188,7 +1100,8 @@ def phase_stft(device):
                              pad_mode="reflect", return_complex=True)
         lib_mag = lib_out.real * lib_out.real + lib_out.imag * lib_out.imag
         lib_dmag = dmag.transpose(1, 2).contiguous()
-        (fb_ms, fb_by), (bb_ms, bb_by) = stft_bounds_ms(b, xb.shape[1], hop, n_frames, n_fft)
+        (fb_ms, fb_by), (bb_ms, bb_by) = roofline.stft_bounds_ms(b, xb.shape[1], hop, n_frames,
+                                                                 n_fft)
         k3 = lambda: stft.stft_power_fwd(xq, n_fft, hop, n_frames)  # noqa: E731
         k3_cast = lambda: stft.stft_power_fwd(xb, n_fft, hop, n_frames)  # noqa: E731
         k4 = lambda: stft.stft_power_bwd(xq, dmag, n_fft, hop, n_frames)  # noqa: E731
@@ -1196,15 +1109,19 @@ def phase_stft(device):
             lib_mag, leaf, lib_dmag, retain_graph=True)
         row = dict(
             n_fft=n_fft, hop=hop, frames=n_frames, **agree,
-            fwd_ms=cuda_ms(k3, iters=20), bwd_ms=cuda_ms(k4, iters=10),
+            fwd_ms=microbench(k3, (), iters=20, warmup=3)["ms"],
+            bwd_ms=microbench(k4, (), iters=10, warmup=3)["ms"],
             fwd_graph_ms=graph_ms(k3, iters=20), bwd_graph_ms=graph_ms(k4, iters=10),
-            cast_ms=cuda_ms(lambda: xb.to(torch.bfloat16), iters=20),
-            fwd_cast_ms=cuda_ms(k3_cast, iters=20), fwd_cast_graph_ms=graph_ms(k3_cast, iters=20),
-            plain_fwd_ms=cuda_ms(lambda: stft.stft_power_plain(xb, n_fft, hop, n_frames), iters=10),
-            plain_bwd_ms=cuda_ms(
-                lambda: stft.stft_power_bwd_plain(xb, dmag, n_fft, hop, n_frames), iters=10),
-            library_fwd_ms=cuda_ms(library_fwd, iters=20),
-            library_bwd_ms=cuda_ms(lib_bwd, iters=20),
+            cast_ms=microbench(lambda: xb.to(torch.bfloat16), (), iters=20, warmup=3)["ms"],
+            fwd_cast_ms=microbench(k3_cast, (), iters=20, warmup=3)["ms"],
+            fwd_cast_graph_ms=graph_ms(k3_cast, iters=20),
+            plain_fwd_ms=microbench(lambda: stft.stft_power_plain(xb, n_fft, hop, n_frames), (),
+                                    iters=10, warmup=3)["ms"],
+            plain_bwd_ms=microbench(
+                lambda: stft.stft_power_bwd_plain(xb, dmag, n_fft, hop, n_frames), (),
+                iters=10, warmup=3)["ms"],
+            library_fwd_ms=microbench(library_fwd, (), iters=20, warmup=3)["ms"],
+            library_bwd_ms=microbench(lib_bwd, (), iters=20, warmup=3)["ms"],
             library_fwd_graph_ms=try_graph_ms(library_fwd, 20, f"torch.stft at {n_fft}"),
             library_bwd_graph_ms=try_graph_ms(
                 lib_bwd, 20, f"torch.stft's autograd backward at {n_fft}"),
@@ -1535,31 +1452,6 @@ def decoder_step_ms(device, order, steps: int = 5):
 # --------------------------------------------------------------- phase 11
 
 
-def variant_bound_ms(kernel: str, b: int, t: int, hop: int, h: int):
-    """(ms, "operations" | "bytes"): K8 variants their base kernel's bound,
-    K7 the forward's, K5 over B*T rows its own, K6 the larger of its fill
-    at the fp32 peak and its contractions at the bf16 peak (or its bytes),
-    S2 its fill (or its bytes)."""
-    (fwd_ms, fwd_by), (bwd_ms, bwd_by), _ = frame_bounds_ms(b, t, hop, h)
-    if kernel.startswith("osc_frames_fwd") or kernel == "osc_cheb_fwd":
-        return fwd_ms, fwd_by
-    if kernel.startswith("osc_frames_bwd"):
-        return bwd_ms, bwd_by
-    if kernel == "osc_hop_slots":
-        return kernel_bound_ms(b * t, hop, h)
-    points, samples, rows = b * t * hop * h, b * t * hop, b * (t + 2)
-    if kernel == "osc_banked_bwd":
-        n_bytes = 4 * (2 * samples + rows * h + rows + 3 * hop + samples + rows * h + rows)
-        times = {"operations": max(FILL_FLOP_PER_POINT * points / PEAK_FP32_FLOPS,
-                                   K6_MMA_FLOP_PER_POINT * points / PEAK_BF16_FLOPS)}
-    else:  # osc_fill_only: phase, amps in; dphase, the windows' copies, zeros out
-        n_bytes = 4 * (samples + rows * h + samples + 3 * b * t * h + 3 * b * t)
-        times = {"operations": FILL_FLOP_PER_POINT * points / PEAK_FP32_FLOPS}
-    times["bytes"] = n_bytes / PEAK_BYTES_PER_S
-    by = max(times, key=times.get)
-    return 1e3 * times[by], by
-
-
 def check_variant_row(row, shape: str) -> None:
     """Phase 11's floors for one sweep row (see the module docstring)."""
     what = f"{row['label']} ({row['kernel']}) at {shape}"
@@ -1643,7 +1535,7 @@ def phase_variants(device):
             if row.get("reference"):
                 continue
             check_variant_row(row, shape)
-            bound_ms, bound_by = variant_bound_ms(row["kernel"], b, t, hop, h)
+            bound_ms, bound_by = roofline.variant_bound_ms(row["kernel"], b, t, hop, h)
             db = row["db_plain"]
             db = min(db.values()) if isinstance(db, dict) else db
             f64 = row["db_f64"]
@@ -1733,18 +1625,6 @@ def phase_contract_step(device):
 # --------------------------------------------------------------- phase 13
 
 
-def dsignal_bound_ms(rows: int, n: int, batch: int, length: int):
-    """The fused d/dsignal's least time: S1's operations on ``rows`` complex
-    rows at the bf16 peak, or its bytes (g in, dsignal out, the spectrum
-    in) at the HBM rate."""
-    from ddsp_tpu_torch.ops.fft import _split_factors
-
-    n1, n2 = _split_factors(n)
-    t_ops = rows * 16 * n * (n1 + n2) / PEAK_BF16_FLOPS
-    t_bytes = 4 * (2 * batch * length + 2 * n) / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
 def check_dsignal(device):
     """The fused d/dsignal entry at the training shape (16 rows of 88,064
     samples, the 44,100-tap IR: two overlap-save chunks of 98,304) against
@@ -1785,12 +1665,12 @@ def check_dsignal(device):
     }
     runs = {k: [] for k in fns}
     for name in ("plain", "kernel", "unfused", "library", "library", "unfused", "kernel", "plain"):
-        runs[name].append(cuda_ms(fns[name], CT_ITERS))
+        runs[name].append(microbench(fns[name], (), iters=CT_ITERS, warmup=3)["ms"])
     ms = {k: float(np.mean(v)) for k, v in runs.items()}
     # its device time without the host's: the call's plain operations (the
     # kernel's permuted spectrum) launch faster from a graph
     graph = {k: graph_ms(fns[k], CT_ITERS) for k in ("kernel", "unfused", "library")}
-    bound, bound_by = dsignal_bound_ms(plan.rows, plan.n, b, length)
+    bound, bound_by = roofline.dsignal_bound_ms(plan.rows, plan.n, b, length)
     log(f"[ct-conv] fused d/dsignal at ({b}, {length}), {taps} taps ({plan.chunks} chunks of "
         f"{plan.n}, {plan.rows} complex rows): vs plain {snr:.2f} dB (max |err| {err:.3e}), "
         f"bit-equal on rerun; kernel {ms['kernel']:.5f} ms, the unfused route through S1 "
@@ -2080,8 +1960,10 @@ def phase_realtime(device):
         live_launches = dict(osc_frames.VARIANT_LAUNCHES)
         want = live_plain(ctl, context, conf, phase)
         live_snr = snr_db(want.cpu().numpy(), audio.cpu().numpy())
-        live_ms = cuda_ms(lambda: oscillator_live(ctl, conf, phase, context), iters=50)
-        plain_ms = cuda_ms(lambda: live_plain(ctl, context, conf, phase), iters=10, warmup=1)
+        live_ms = microbench(lambda: oscillator_live(ctl, conf, phase, context), (),
+                             iters=50, warmup=3)["ms"]
+        plain_ms = microbench(lambda: live_plain(ctl, context, conf, phase), (),
+                              iters=10, warmup=1)["ms"]
     log(f"[realtime] oscillator_live, batch 1, {RT_LIVE_FRAMES} frames with context: "
         f"{live_launches}; vs its plain version on the card {live_snr:.2f} dB (> "
         f"{KERNEL_SNR_FLOOR_DB}); {live_ms:.5f} ms a call, plain {plain_ms:.5f} ms")
@@ -2228,18 +2110,6 @@ class written_audio:
         reconstruct.write_wav = self.write
 
 
-def device_kernel_ns(prof) -> list:
-    """The duration (ns) of every kernel the profiler saw on the card (its
-    device events but copies, fills and the ``record_function`` ranges),
-    read from its raw events: building the event tree of ~70k launches
-    takes longer than the call it profiled."""
-    import torch
-
-    return [e.duration_ns() for e in prof.profiler.kineto_results.events()
-            if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation()
-            and not e.name().startswith(("Memcpy", "Memset"))]
-
-
 def phase_reconstruct(device):
     """Offline reconstruction at full width: the CLI on a 60 s, 48 kHz
     stereo WAV (Lightning .ckpt in, CREPE .pth, --export_torch); in-process
@@ -2354,13 +2224,13 @@ def phase_reconstruct(device):
             want = plain().cpu().numpy()
             got = k1_out.cpu().numpy()
             snr, err = snr_db(want, got), float(np.abs(got - want).max())
-            ms = cuda_ms(lambda: launch(phase, amps_pad, loud_pad, h_start, **kw), iters=50)
+            ms = microbench(lambda: launch(phase, amps_pad, loud_pad, h_start, **kw), (),
+                            iters=50, warmup=3)["ms"]
             in_graph = graph_ms(lambda: launch(phase, amps_pad, loud_pad, h_start, **kw),
                                 iters=50)
-            plain_ms = cuda_ms(plain, iters=3, warmup=1)
-        (bound_ms, bound_by), floor_ms = (frame_bounds_ms(b, t, hop, h)[0],
-                                          K1_ROT_FLOOR_MS * b * t * hop
-                                          / K1_ROT_FLOOR_SAMPLES)
+            plain_ms = microbench(plain, (), iters=3, warmup=1)["ms"]
+        (bound_ms, bound_by), floor_ms = (roofline.frame_bounds_ms(b, t, hop, h)[0],
+                                          roofline.k1_rot_floor_ms(b * t * hop))
         log(f"[reconstruct] K1 at the file's shape (B={b}, T={t}, hop {hop}, H={h}, "
             f"{kw.get('fill')}): vs plain {snr:.2f} dB (> {KERNEL_SNR_FLOOR_DB}), max |err| "
             f"{err:.3e}; {ms:.5f} ms a call, {in_graph:.5f} ms in a CUDA graph, plain "
@@ -2384,7 +2254,7 @@ def phase_reconstruct(device):
             profiled = reconstruct_file(path["in.wav"], path["again.wav"], conf,
                                         crepe_checkpoint=path["crepe.pth"], decoder=decoder,
                                         device=device)
-        kernels = device_kernel_ns(prof)
+        kernels = kernel_durations_ns(prof)
         busy_ms = 1e-6 * sum(kernels)
         rtf = warm["seconds"] / warm["wall_s"]
         log(f"[reconstruct] reconstruct_file warm: {warm['wall_s']:.3f} s wall for "
@@ -3009,10 +2879,11 @@ def phase_parallel(device, smi: str):
         torch.cuda.synchronize()
         db = snr_db(want.cpu().numpy(), got.cpu().numpy())
         err = float((got - want).abs().max())
-        ms = cuda_ms(lambda: osc_frames.osc_frames_fwd(phase, amps, loud, h0, fill="rot"), 50)
-        plain_ms = cuda_ms(lambda: osc_frames.render_from_phase_variant_plain(
-            phase, amps, loud, h0, "rot"), 5, warmup=1)
-    bound_ms, bound_by = frame_bounds_ms(b, PAR_TP_FRAMES, hop, h)[0]
+        ms = microbench(lambda: osc_frames.osc_frames_fwd(phase, amps, loud, h0, fill="rot"), (),
+                        iters=50, warmup=3)["ms"]
+        plain_ms = microbench(lambda: osc_frames.render_from_phase_variant_plain(
+            phase, amps, loud, h0, "rot"), (), iters=5, warmup=1)["ms"]
+    bound_ms, bound_by = roofline.frame_bounds_ms(b, PAR_TP_FRAMES, hop, h)[0]
     log(f"[parallel] K1 at the TP shard shape (B={b}, T={PAR_TP_FRAMES}, hop {hop}, H={h}, "
         f"h_start {h0}, rot): vs plain {db:.2f} dB (> {KERNEL_SNR_FLOOR_DB}), max |err| "
         f"{err:.3e}; {ms:.5f} ms a call, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
@@ -3110,18 +2981,17 @@ def phase_experiments(device, smi: str):
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
-            by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns() / 1e6
+    for e in device_events(prof):
+        by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns() / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     log(f"[experiments] first loss evaluation {first_ms:.1f} ms; one profiled step "
         f"({profiled.state.evaluations} evaluations): wall {prof_ms:.3f} ms, the card busy "
-        f"{sum(by_name.values()):.3f} ms in {len(device_kernel_ns(prof))} kernels; most: "
+        f"{sum(by_name.values()):.3f} ms in {len(kernel_durations_ns(prof))} kernels; most: "
         + "; ".join(f"{name[:60]} {t:.3f}" for name, t in top))
     evals = [s.state.evaluations for s in steps]
     f, c_in, k = ext["weight"].shape
     tf = t - k + 1
-    flops = 4.0 * f * c_in * k * tf + 6.0 * f * f * tf  # conv fwd + d/dspec, Gram fwd + bwd
+    flops = roofline.style_eval_flops(f, c_in, k, tf)
     eval_ms = sum(ms) / sum(evals)
     for i, s in enumerate(steps):
         log(f"[experiments] L-BFGS step {i}: {ms[i]:.3f} ms, {evals[i]} loss evaluations, "
@@ -3132,7 +3002,8 @@ def phase_experiments(device, smi: str):
     log(f"[experiments] style transfer {tuple(cs.shape)} on the card: median "
         f"{statistics.median(ms):.3f} ms a step ({sum(ms):.1f} ms for {ST_STEPS}), "
         f"{sum(evals)} loss evaluations, {eval_ms:.3f} ms each against a float32 bound of "
-        f"{flops / PEAK_FP32_FLOPS * 1e3:.3f} ms ({flops:.3e} FLOP); loss {loss0:.6e} -> "
+        f"{flops / roofline.PEAK_FP32_FLOPS * 1e3:.3f} ms ({flops:.3e} FLOP); loss {loss0:.6e} "
+        f"-> "
         f"{loss_end:.6e}, Gram distance {style0:.6e} -> {style_end:.6e}")
     require(np.isfinite(loss_end) and loss_end < loss0, f"loss did not fall: {loss0} -> {loss_end}")
     require(style_end < style0, f"Gram distance did not fall: {style0} -> {style_end}")
@@ -3230,6 +3101,144 @@ def phase_experiments(device, smi: str):
             "gl_sc": sc, "gl_curve": curve["rows"], "dream_ms_per_iter": dream_ms}
 
 
+# --------------------------------------------------------------- phase 19
+
+MEAS_TARGET_S, MEAS_TRIALS = 0.5, 3  # the frontier's chain: ~1 s a trial at 2048 slots
+MEAS_PROFILE_STEPS = 5  # train steps a profile_training window
+
+
+def numerics_settings():
+    """Every setting ``profiling.deoptimized`` touches."""
+    import torch
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    return (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(), cudnn.benchmark,
+            cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32)
+
+
+def phase_measurement(device, smi: str, train_ms: float):
+    """The serving frontier and the many-client drive on K5, the GRU's step
+    latency, the train step against its roofline, and the backward's
+    rerun plainly and under the deterministic mode."""
+    import torch
+
+    from ddsp_tpu_torch.config import Config
+    from ddsp_tpu_torch.models.controller import decoder_init
+    from ddsp_tpu_torch.models.crepe import crepe_init
+    from ddsp_tpu_torch.models.nn import gru_cell
+    from ddsp_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from ddsp_tpu_torch.ops.cuda import oscillator as osc_cuda
+    from ddsp_tpu_torch.utils import multistream_frontier as mf
+    from ddsp_tpu_torch.utils import server_drive
+    from ddsp_tpu_torch.utils.profile_training import profile as profile_steps
+
+    conf = Config()
+    rot = osc_cuda.variant_name("rot")
+    params, crepe = decoder_init(conf, seed=SEED), crepe_init(conf.crepe_capacity, seed=SEED + 1)
+    deadline = mf.deadline_ms(conf)
+    out = {}
+
+    def only_k5(steps: int, what: str) -> None:
+        launched = {k: v for k, v in launch_counts().items() if v}
+        by_fill = dict(osc_cuda.VARIANT_LAUNCHES)
+        require(launched == {"osc_hop_slots": steps} and by_fill == {rot: steps},
+                f"{what} launched {launched} ({by_fill}) in {steps} steps, not K5 once a step "
+                f"on {rot}")
+
+    reset_launch_counts()  # the frontier's steps from here
+    lines = []
+    front = mf.sweep(DEADLINE_SLOTS, lambda n: mf.measure(
+        n, params, crepe, conf, device, DEADLINE_HOPS, MEAS_TARGET_S, MEAS_TRIALS, SEED),
+        deadline, passes=1, emit=lines.append)
+    only_k5(front["hops_run"], "the frontier")
+    for line in lines + [mf.frontier_line(front, deadline, smi)]:
+        log(f"[measure] {line}")
+    for n in DEADLINE_SLOTS:
+        bound, by = roofline.kernel_bound_ms(n, conf.hop_length, conf.n_harmonics)
+        log(f"[measure] N={n}: wall {front['hops_ms'][n]:.3f} ms a hop, its feedback chain "
+            f"{front['chain_ms'][n]:.3f} ms a hop, against the {deadline:.2f} ms deadline; "
+            f"K5's bound {bound:.5f} ms ({by}); {smi}")
+    out["frontier"] = dict(slots=front["frontier"], launches=front["hops_run"],
+                           hops_ms={str(n): v for n, v in front["hops_ms"].items()},
+                           chain_ms={str(n): v for n, v in front["chain_ms"].items()})
+
+    reset_launch_counts()  # the drive's steps from here
+    drive = server_drive.drive(params, crepe, conf, device=device, seed=SEED)
+    log(f"[measure] server drive: {json.dumps(drive)}; {smi}")
+    require(not server_drive.failed(drive) and drive["all_finite_in_order"],
+            f"server drive: {drive['sessions_completed']} of {drive['sessions_expected']} "
+            f"sessions, errors {drive['errors']}")
+    require(drive["sessions_on_reused_slots"] > 0, "no session reused a slot")
+    only_k5(drive["device_steps"], "the server drive")
+    out["server_drive"] = {k: drive[k] for k in (
+        "aggregate_hops_per_s", "wall_s", "sessions_completed", "sessions_on_reused_slots",
+        "fresh_slot_max_abs_err", "device_steps")}
+
+    gru = params.controller.gru.to(device)
+    t, units = conf.frames_per_example, conf.decoder_gru_units
+    gi = torch.randn((conf.batch_size, t, 3 * units), generator=torch.Generator().manual_seed(
+        SEED), dtype=torch.float32).to(device)
+    h0 = torch.zeros((conf.batch_size, units), device=device)
+
+    @torch.no_grad()
+    def recurrence():
+        h = h0
+        for i in range(t):
+            h = gru_cell(gru.weight_hh_l0, gru.bias_hh_l0, h, gi[:, i])
+        return h
+
+    gru_s = 1e-3 * graph_ms(recurrence, 1) / t
+    log(f"[measure] GRU recurrence step at batch {conf.batch_size}, {units} units, from a CUDA "
+        f"graph of {t} steps: {1e6 * gru_s:.4f} us (roofline.GRU_STEP_LATENCY_S "
+        f"{1e6 * roofline.GRU_STEP_LATENCY_S:.4f} us); {smi}")
+    out["gru_step_us"] = 1e6 * gru_s
+
+    bound_s, stages = roofline.train_step_bound_s(conf, conf.batch_size)
+    reset_launch_counts()  # the profiled train steps from here
+    prof = profile_steps(MEAS_PROFILE_STEPS, conf.batch_size, seed=SEED)
+    counts, ran = launch_counts(), 3 + 3 * MEAS_PROFILE_STEPS  # warm-up, wall, two windows
+    for k in ("osc_frames_fwd", "osc_frames_bwd", "ct_conv_dsignal"):
+        require(counts[k] == ran, f"{k} launched {counts[k]} times in {ran} train steps")
+    busy = prof["device_busy_ms_per_step"]
+    log(f"[measure] train step at batch {conf.batch_size}: bound {1e3 * bound_s:.4f} ms; phase "
+        f"7's median {train_ms:.3f} ms a step (bound {1e3 * bound_s / train_ms:.4%} of it), "
+        f"profiled wall {prof['wall_ms_median']:.3f} ms, busy {busy:.3f} ms (bound "
+        f"{1e3 * bound_s / busy:.4%} of it), idle {prof['device_idle_share']:.1%}; K1, K2, S1 "
+        f"{counts['osc_frames_fwd']}, {counts['osc_frames_bwd']}, {counts['ct_conv_dsignal']} "
+        f"launches in {ran} steps; {smi}")
+    ranges = {"controller": "controller", "gru_serial_latency": "controller",
+              "oscillator": "oscillator_bank", "noise_fir": "filtered_noise",
+              "reverb_fft": "reverb", "mss_loss": "loss", "adam_hbm": "optimizer"}
+    for stage, sec in stages.items():
+        r = ranges[stage]
+        log(f"[measure]   {stage}: bound {1e3 * sec:.5f} ms ({sec / bound_s:.1%} of the bound); "
+            f"range {r!r} (forward only; every backward is in 'backward', "
+            f"{prof['stages']['backward']['device_ms_per_step']:.3f} ms) "
+            f"{prof['stages'][r]['device_ms_per_step']:.3f} device ms a step")
+    out["train_step"] = dict(bound_ms=1e3 * bound_s, stages_ms={k: 1e3 * v for k, v in
+                                                                stages.items()},
+                             wall_ms=train_ms, busy_ms=busy, launches=ran,
+                             ranges_ms={k: v["device_ms_per_step"]
+                                        for k, v in prof["stages"].items()})
+
+    batch = feature_batch(conf, conf.batch_size, SEED + 18)
+    before = numerics_settings()
+    plain = rerun_bits(conf, batch, device)
+    with deoptimized() as warned:
+        deopt = rerun_bits(conf, batch, device)
+    require(numerics_settings() == before,
+            f"deoptimized left the settings {numerics_settings()}, not {before}")
+    log(f"[measure] the backward twice on one input: plainly, the step's worst leaf "
+        f"{plain['step']:.3e} of its norm, the MSS loss's gradient {plain['loss']:.3e}; under "
+        f"deoptimized() {deopt['step']:.3e} and {deopt['loss']:.3e}; settings restored; "
+        f"{len(warned)} ops warned{':' if warned else ''}")
+    for w in warned:
+        log(f"[measure]   {w.splitlines()[0][:300]}")
+    out["rerun"] = dict(plain=plain, deoptimized=deopt, warned=warned)
+    return out
+
+
 def timed_phase(phase: int, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3255,13 +3264,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU", file=sys.stderr)
         return 2
+    # cuBLAS is deterministic under phase 19's deoptimized() only with this
+    # set before its handle is made
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, ROOT)
     import ddsp_tpu_torch  # noqa: F401 -- fails outside a checkout
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_name()
     log(smi)
     device = torch.device("cuda", 0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
@@ -3291,6 +3300,7 @@ def main() -> int:
     recon = timed(16, phase_reconstruct, device)
     par = timed(17, phase_parallel, device, smi)
     timed(18, phase_experiments, device, smi)
+    measured = timed(19, phase_measurement, device, smi, auto_ms)
 
     no_library = ("null: no single PyTorch call computes a harmonic sine-bank render or its "
                   "gradient; the nearest is the plain version")
@@ -3309,6 +3319,11 @@ def main() -> int:
             launches=train_launches[name], launches_by_variant={
                 k: v for k, v in train_launches["by_variant"].items() if k.startswith(name)},
             library_ms=None, library=no_library, **frames[name]))
+    kernels[0]["launches_measurement"] = {
+        "frontier": measured["frontier"]["launches"],
+        "server_drive": measured["server_drive"]["device_steps"]}
+    for k in kernels[1:]:
+        k["launches_measurement"] = {"train_step_profile": measured["train_step"]["launches"]}
     k1 = next(k for k in kernels if k["name"] == "osc_frames_fwd")
     k1["launches_realtime"] = realtime["live"]["launches"]
     k1["launches_reconstruct"] = recon["launches"]
@@ -3362,6 +3377,7 @@ def main() -> int:
         library="torch.fft.irfft(torch.fft.rfft(g) * conj(H)): the float32 cuFFT correlation",
         launches_parallel={"dp_steps": par["launches"]["ct_conv_dsignal"],
                            "tp_steps": par["launches"]["tp_steps"]["ct_conv_dsignal"]},
+        launches_measurement={"train_step_profile": measured["train_step"]["launches"]},
         **s1["ct_conv_dsignal"]))
     for name, entry in variants.items():
         if name in ("osc_frames_fwd", "osc_frames_bwd"):

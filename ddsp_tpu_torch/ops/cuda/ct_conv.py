@@ -44,6 +44,7 @@ from ddsp_tpu_torch.ops.fft import (
     overlap_save_plan,
     shared_kernel_spectrum,
 )
+from ddsp_tpu_torch.utils.profiling import check_kernel_output
 
 LAUNCHES = 0
 DSIGNAL_LAUNCHES = 0
@@ -161,6 +162,7 @@ def _launch(zr, zi, kr, ki, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
     if rc != 0:
         raise RuntimeError(f"ct_conv launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    check_kernel_output("ct_conv", y)
     return y[0], y[1]
 
 
@@ -195,6 +197,7 @@ def _launch_dsignal(g, kr, ki, plan: OverlapSavePlan) -> torch.Tensor:
         raise RuntimeError(f"ct_conv_dsignal launch failed: CUDA error {rc}")
     LAUNCHES += 1
     DSIGNAL_LAUNCHES += 1
+    check_kernel_output("ct_conv_dsignal", dsig)
     return dsig
 
 

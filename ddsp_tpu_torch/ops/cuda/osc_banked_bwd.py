@@ -40,6 +40,7 @@ from ddsp_tpu_torch.ops.cuda.osc_frames import (
 )
 from ddsp_tpu_torch.ops.interp import hop_weights_on
 from ddsp_tpu_torch.ops.osc_fill import fill_banks
+from ddsp_tpu_torch.utils.profiling import check_kernel_output
 
 BWD_LAUNCHES = 0
 FILL_LAUNCHES = 0
@@ -141,6 +142,7 @@ def osc_banked_bwd_windows(g, phase, amps_pad, loud_pad, h_start: int = 0,
     if rc != 0:
         raise RuntimeError(f"osc_banked_bwd launch failed: CUDA error {rc}")
     BWD_LAUNCHES += 1
+    check_kernel_output("osc_banked_bwd", dphase, da_win, dl_win)
     return dphase, da_win, dl_win
 
 
@@ -180,6 +182,7 @@ def osc_fill_only(phase, amps_pad) -> Tuple[torch.Tensor, ...]:
     if rc != 0:
         raise RuntimeError(f"osc_fill_only launch failed: CUDA error {rc}")
     FILL_LAUNCHES += 1
+    check_kernel_output("osc_fill_only", dphase, da_win, dl_win)
     return (dphase, da_win[:, :, 0], da_win[:, :, 1], da_win[:, :, 2], dl_win)
 
 

@@ -24,6 +24,7 @@ from ddsp_tpu_torch.ops.cuda import build as _build
 from ddsp_tpu_torch.ops.interp import hop_weights_on
 from ddsp_tpu_torch.ops.osc_fill import exact_sincos, split_phase
 from ddsp_tpu_torch.ops.oscillator import TWO_PI
+from ddsp_tpu_torch.utils.profiling import check_kernel_output
 
 LAUNCHES = 0
 
@@ -124,4 +125,5 @@ def osc_cheb_fwd(phase, amps_pad, loud_pad, resync: int = 32) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"osc_cheb_fwd launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    check_kernel_output("osc_cheb_fwd", out)
     return out

@@ -55,6 +55,7 @@ from ddsp_tpu_torch.ops.cuda import build as _build
 from ddsp_tpu_torch.ops.interp import hop_weights_on
 from ddsp_tpu_torch.ops.osc_fill import FILLS, fill_banks, round_bf16
 from ddsp_tpu_torch.ops.oscillator import TWO_PI, render_from_phase_plain
+from ddsp_tpu_torch.utils.profiling import check_kernel_output
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
@@ -282,6 +283,7 @@ def osc_frames_fwd(phase, amps_pad, loud_pad, h_start: int = 0, fill: str = "exa
         raise RuntimeError(f"osc_frames_fwd launch failed: CUDA error {rc}")
     FWD_LAUNCHES += 1
     VARIANT_LAUNCHES[variant_name("osc_frames_fwd", fill, bf16, resync_tiles, chunk_tiles)] += 1
+    check_kernel_output("osc_frames_fwd", out)
     return out
 
 
@@ -315,6 +317,7 @@ def osc_frames_bwd_windows(
         raise RuntimeError(f"osc_frames_bwd launch failed: CUDA error {rc}")
     BWD_LAUNCHES += 1
     VARIANT_LAUNCHES[variant_name("osc_frames_bwd", fill, bf16, resync_tiles, chunk_tiles)] += 1
+    check_kernel_output("osc_frames_bwd", dphase, da_win, dl_win)
     return dphase, da_win, dl_win
 
 
@@ -344,6 +347,7 @@ def osc_overlap_add(da_win, dl_win, t: int) -> Tuple[torch.Tensor, torch.Tensor]
     if rc != 0:
         raise RuntimeError(f"osc_frames_overlap_add launch failed: CUDA error {rc}")
     OVERLAP_LAUNCHES += 1
+    check_kernel_output("osc_frames_overlap_add", d_amps, d_loud)
     return d_amps, d_loud
 
 

@@ -34,6 +34,7 @@ import torch
 from ddsp_tpu_torch.ops.cuda import build as _build
 from ddsp_tpu_torch.ops.osc_fill import fill_banks
 from ddsp_tpu_torch.ops.oscillator import harmonic_sines
+from ddsp_tpu_torch.utils.profiling import check_kernel_output
 
 LAUNCHES = 0
 VARIANT_LAUNCHES: collections.Counter = collections.Counter()
@@ -146,6 +147,7 @@ def osc_hop_slots(
         raise RuntimeError(f"osc_hop_slots launch failed: CUDA error {rc}")
     LAUNCHES += 1
     VARIANT_LAUNCHES[variant_name(fill)] += 1
+    check_kernel_output("osc_hop_slots", out)
     return out
 
 

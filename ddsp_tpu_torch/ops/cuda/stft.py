@@ -42,6 +42,7 @@ import torch
 
 from ddsp_tpu_torch.ops.cuda import build as _build
 from ddsp_tpu_torch.ops.fft import DIRECT_MAX
+from ddsp_tpu_torch.utils.profiling import check_kernel_output
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
@@ -211,6 +212,7 @@ def stft_power_fwd(xb: torch.Tensor, n_fft: int, hop: int, n_frames: int) -> tor
     _launch("stft_power_fwd", xb.device, xq.data_ptr(), wt.data_ptr(), out.data_ptr(),
             b, n_blocks, hop, n_fft, n_frames)
     FWD_LAUNCHES += 1
+    check_kernel_output("stft_power_fwd", out)
     return out
 
 
@@ -232,9 +234,11 @@ def stft_power_bwd(
     _launch("stft_power_bwd_recompute", xb.device, xq.data_ptr(), dmag.data_ptr(),
             wt.data_ptr(), d.data_ptr(), b, n_blocks, hop, n_fft, n_frames)
     BWD_RECOMPUTE_LAUNCHES += 1
+    check_kernel_output("stft_power_bwd_recompute", d)
     _launch("stft_power_bwd_shifted", xb.device, d.data_ptr(), wcat.data_ptr(), dxb.data_ptr(),
             b, n_blocks, hop, n_fft, n_frames)
     BWD_LAUNCHES += 1
+    check_kernel_output("stft_power_bwd", dxb)
     return dxb
 
 

@@ -131,6 +131,7 @@ class StreamServer:
             torch.zeros((n_streams, self.hop), device=self.device),
             torch.zeros((n_streams,), dtype=torch.bool, device=self.device),
         )
+        self.steps = 1  # device steps run: this one, then every step and flush
 
     # ------------------------------------------------------------ lifecycle
 
@@ -306,6 +307,7 @@ class StreamServer:
 
             if flushes:
                 tail = self._flush(self._state)[0].cpu().numpy()
+                self.steps += 1
                 for i in flushes:
                     deliver(i, tail[i])
             if resets:
@@ -317,6 +319,7 @@ class StreamServer:
                     torch.from_numpy(mask).to(self.device),
                 )
                 out = out.cpu().numpy()
+                self.steps += 1
                 for i in np.nonzero(mask)[0]:
                     deliver(i, out[i])
 

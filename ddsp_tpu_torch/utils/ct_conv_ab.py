@@ -18,9 +18,10 @@ spectrum of a full-length random kernel x 0.1, as that script makes them:
 * SNRs: kernel against plain on every row, and kernel, plain and cuFFT
   against a float64 FFT convolution on two rows; whether two kernel runs
   are bit-equal;
-* ``bound_ms``: the larger of 16 n (n1 + n2) flops a row at the 989
-  TFLOP/s bf16 dense peak and the bytes moved (rows in and out, the
-  spectrum in: 4 (4 rows n + 2 n)) at 3.35 TB/s (H100 SXM, 700 W).
+* ``bound_ms``: ``utils/roofline.ct_conv_bound_ms``, the larger of 16 n
+  (n1 + n2) flops a row at the 989 TFLOP/s bf16 dense peak and the bytes
+  moved (rows in and out, the spectrum in: 4 (4 rows n + 2 n)) at 3.35
+  TB/s (H100 SXM, 700 W).
 
 ``--device=cpu`` runs the wrapper's CPU path (the plain version) at n =
 6144 by default, for the SNRs only: no times.  Prints one JSON line and,
@@ -31,7 +32,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 from typing import Dict
 
 import numpy as np
@@ -40,9 +40,8 @@ import torch
 from ddsp_tpu_torch.device import resolve_device
 from ddsp_tpu_torch.ops import fft
 from ddsp_tpu_torch.ops.cuda import ct_conv as s1
-
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense, 700 W (NVIDIA data sheet)
-PEAK_BYTES_PER_S = 3.35e12
+from ddsp_tpu_torch.utils.profiling import card_name, microbench
+from ddsp_tpu_torch.utils.roofline import ct_conv_bound_ms
 
 
 def operands(rows: int, n: int, device, seed: int = 0):
@@ -57,14 +56,6 @@ def operands(rows: int, n: int, device, seed: int = 0):
     spec = np.fft.fft(k.astype(np.float64)).reshape(n2, n1).T.reshape(1, n)
     arrays = (zr, zi, spec.real, spec.imag)
     return (*(torch.tensor(a, dtype=torch.float32, device=device) for a in arrays), k)
-
-
-def bound_ms(rows: int, n: int):
-    """(ms, "operations" | "bytes"): the least time the H100 could take."""
-    n1, n2 = fft._split_factors(n)
-    t_ops = rows * 16 * n * (n1 + n2) / PEAK_BF16_FLOPS
-    t_bytes = 4 * (4 * rows * n + 2 * n) / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def natural_spectrum(kr, ki, n: int) -> torch.Tensor:
@@ -83,20 +74,6 @@ def snr_db(ref, est) -> float:
     ref = np.asarray(ref, np.complex128)
     noise = np.mean(np.abs(ref - np.asarray(est, np.complex128)) ** 2)
     return float("inf") if noise == 0 else float(10 * np.log10(np.mean(np.abs(ref) ** 2) / noise))
-
-
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def race(device, rows: int, n: int, iters: int = 20, seed: int = 0) -> Dict:
@@ -121,7 +98,7 @@ def race(device, rows: int, n: int, iters: int = 20, seed: int = 0) -> Dict:
         plain_snr_f64_db=snr_db(oracle, want[:2]),
         library_snr_f64_db=snr_db(oracle, lib[:2].cpu().numpy()),
     )
-    out["bound_ms"], out["bound_by"] = bound_ms(rows, n)
+    out["bound_ms"], out["bound_by"] = ct_conv_bound_ms(rows, n)
     if device.type != "cuda":
         out["ms"] = out["plain_ms"] = out["library_ms"] = None  # not measured
         return out
@@ -130,7 +107,7 @@ def race(device, rows: int, n: int, iters: int = 20, seed: int = 0) -> Dict:
            "library": lambda: library_conv(z, spec)}
     times = {name: [] for name in fns}
     for name in ("plain", "kernel", "library", "library", "kernel", "plain"):
-        times[name].append(cuda_ms(fns[name], iters))
+        times[name].append(microbench(fns[name], (), iters=iters, warmup=3)["ms"])
     out["ms"], out["plain_ms"], out["library_ms"] = (
         float(np.mean(times[name])) for name in ("kernel", "plain", "library"))
     out["runs_ms"] = times
@@ -160,12 +137,7 @@ def main(argv=None) -> Dict:
     device = resolve_device(args.device)
     n = args.n or (98304 if device.type == "cuda" else 6144)
     result = race(device, args.rows, n, args.iters)
-    if device.type == "cuda":
-        result["device"] = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True).stdout.strip().splitlines()[0]
-    else:
-        result["device"] = "cpu"
+    result["device"] = card_name(device)
     line = json.dumps(finite(result))
     print(line, flush=True)
     if args.out:

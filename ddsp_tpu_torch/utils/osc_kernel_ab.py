@@ -20,7 +20,7 @@ K7) and ``banked`` (K6, S2); both by default.
   parent, change, change, parent; with ``max_abs_diff`` between the two
   checkouts' outputs (0: bit-equal) and ``bound_ms``, the larger of 7.5
   FLOP a (sample, harmonic) point at 67 TFLOP/s fp32 and the bytes moved
-  at 3.35 TB/s (H100 SXM, 700 W), as ``chip_smoke.py`` computes it;
+  at 3.35 TB/s (H100 SXM, 700 W): ``utils/roofline``'s bound of the kernel;
 * ``bits``: the same comparison, untimed, at awkward shapes: K5 with
   N = 1, 3 and 257, hops of 128 and 200, H of 1, 7 and 301, h_start up to
   2048 - H; K7 at hops 200 (three window sums) and 512 (two), resync 1, 7,
@@ -32,7 +32,7 @@ K7) and ``banked`` (K6, S2); both by default.
   alone and with its overlap-add (this package's one-launch
   ``osc_overlap_add``; the parent's own plain ``overlap_add_windows``
   where it has no ``osc_banked_bwd_shape``, as its wrapper ran), and S2,
-  raced as above with ``bound_ms`` chip_smoke.py's (the fill's 7.5 FLOP a
+  raced as above with ``bound_ms`` roofline's (the fill's 7.5 FLOP a
   point binds); untimed at awkward shapes (hops 128, 200 and 512, H of 1,
   7, 40, 180 and 301, h_start up to 2048 - H, both bank dtypes): S2's
   outputs against the parent's (``max_abs_diff``, 0: bit-equal) and K6's
@@ -64,11 +64,10 @@ import torch
 
 from ddsp_tpu_torch.ops.cuda import build, osc_banked_bwd, osc_frames
 from ddsp_tpu_torch.ops.interp import hop_weights_on
+from ddsp_tpu_torch.utils import roofline
 from ddsp_tpu_torch.utils.osc_sweep import operands, snr_db
+from ddsp_tpu_torch.utils.profiling import graph_ms, microbench
 
-PEAK_FP32_FLOPS = 67e12  # H100 SXM, 700 W (NVIDIA data sheet)
-PEAK_BYTES_PER_S = 3.35e12
-FLOP_PER_POINT = 7.5  # chip_smoke.py's count
 SLOTS = (256, 1024, 2048)
 FRAMES = (16, 172, 512, 180)  # B, T, hop, H: the training shape
 RESYNCS = (16, 32, 64, 180)
@@ -211,51 +210,6 @@ def frame_rows(phase, amps, loud):
             lw.reshape(b * t, 3).contiguous(), hop_weights_on(hop, phase.device)]
 
 
-def bound_ms(samples: int, h: int, in_bytes: int):
-    """(ms, "operations" | "bytes") for ``samples`` outputs of ``h``
-    harmonics each and ``in_bytes`` of inputs."""
-    t_ops = FLOP_PER_POINT * samples * h / PEAK_FP32_FLOPS
-    t_bytes = (in_bytes + 4 * samples) / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def cuda_ms(fn: Callable, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn: Callable, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls replayed from one
-    CUDA graph (no host time between them)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / iters
-
-
 def _tensors(x):
     return list(x) if isinstance(x, (tuple, list)) else [x]
 
@@ -277,9 +231,10 @@ def race(case: str, fns: Dict[str, Callable], iters: int, bound) -> dict:
         row["max_abs_diff"] = max_abs_diff(outs["parent"], outs["change"])
     del outs
     order = ("parent", "change", "change", "parent") if "parent" in fns else ("change",) * 2
-    for key, timer in (("ms", cuda_ms), ("graph_ms", graph_ms)):
-        for name in order:
-            row.setdefault(f"{name}_{key}", []).append(timer(fns[name], iters))
+    for name in order:
+        row.setdefault(f"{name}_ms", []).append(microbench(fns[name], (), iters, 3)["ms"])
+    for name in order:
+        row.setdefault(f"{name}_graph_ms", []).append(graph_ms(fns[name], iters))
     row["bound_ms"], row["bound_by"] = bound
     return row
 
@@ -291,24 +246,21 @@ def timed_cases(kernels: Dict[str, Kernels], device, iters: int) -> List[dict]:
     rows = []
     for n in SLOTS:
         ops = slot_operands(n, 512, 180, device, seed=n)
-        in_bytes = 4 * (n * 512 + 3 * n * 181 + 3 * 512)
         for fill in FILLS:
             rows.append(race(f"K5 N={n} {fill}", each(lambda k, f=fill: k.hop_slots(*ops, fill=f)),
-                             iters, bound_ms(n * 512, 180, in_bytes)))
+                             iters, roofline.kernel_bound_ms(n, 512, 180)))
     b, t, hop, h = FRAMES
     phase, amps, loud, _ = operands(b, t, hop, h, device)
-    samples = b * t * hop
     ops = frame_rows(phase, amps, loud)
     rows.append(race("K5 rows B=16 T=172 rot", each(lambda k: k.hop_slots(*ops, fill="rot")),
-                     iters, bound_ms(samples, h, 4 * (samples + 3 * b * t * (h + 1) + 3 * hop))))
-    frame_bytes = 4 * (samples + b * (t + 2) * (h + 1) + 3 * hop)
+                     iters, roofline.variant_bound_ms("osc_hop_slots", b, t, hop, h)))
     for fill in FRAME_FILLS:
         rows.append(race(f"K1 B=16 T=172 {fill}",
                          each(lambda k, f=fill: k.frames_fwd(phase, amps, loud, f)),
-                         iters, bound_ms(samples, h, frame_bytes)))
+                         iters, roofline.variant_bound_ms("osc_frames_fwd", b, t, hop, h)))
     for r in RESYNCS:
         rows.append(race(f"K7 B=16 T=172 r{r}", each(lambda k, r=r: k.cheb(phase, amps, loud, r)),
-                         iters, bound_ms(samples, h, frame_bytes)))
+                         iters, roofline.variant_bound_ms("osc_cheb_fwd", b, t, hop, h)))
     return rows
 
 
@@ -337,26 +289,20 @@ def banked_timed_cases(kernels: Dict[str, Kernels], device, iters: int) -> List[
     training shape, raced."""
     b, t, hop, h = FRAMES
     phase, amps, loud, g = operands(b, t, hop, h, device)
-    samples = b * t * hop
-    rows_in = b * (t + 2)
-    # bytes past dphase, which bound_ms adds: K6 reads g, phase, amps_pad,
-    # loud_pad, w and writes their gradients; S2 reads phase, amps_pad and
-    # writes the windows' copies and zeros
-    k6_bytes = 4 * (2 * samples + 2 * rows_in * (h + 1) + 3 * hop)
-    s2_bytes = 4 * (samples + rows_in * h + 3 * b * t * (h + 1))
+    k6_bound = roofline.variant_bound_ms("osc_banked_bwd", b, t, hop, h)
     rows = []
     for dtype in ("float32", "bfloat16"):
         rows.append(race(f"K6 B=16 T=172 {dtype} alone",
                          {n: (lambda k=k, d=dtype: k.banked_bwd(g, phase, amps, loud, 0, d))
                           for n, k in kernels.items()},
-                         iters, bound_ms(samples, h, k6_bytes)))
+                         iters, k6_bound))
         rows.append(race(f"K6 B=16 T=172 {dtype} with its overlap-add",
                          {n: (lambda k=k, d=dtype: k.banked_bwd_full(g, phase, amps, loud, 0, d))
                           for n, k in kernels.items()},
-                         iters, bound_ms(samples, h, k6_bytes)))
+                         iters, k6_bound))
     rows.append(race("S2 B=16 T=172", {n: (lambda k=k: k.fill_only(phase, amps))
                                        for n, k in kernels.items()},
-                     iters, bound_ms(samples, h, s2_bytes)))
+                     iters, roofline.variant_bound_ms("osc_fill_only", b, t, hop, h)))
     return rows
 
 

@@ -40,7 +40,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -56,6 +55,7 @@ from ddsp_tpu_torch.ops.cuda import (
 )
 from ddsp_tpu_torch.ops.cuda import oscillator as osc_slots
 from ddsp_tpu_torch.ops.interp import hop_weights_on
+from ddsp_tpu_torch.utils.profiling import microbench
 
 FWD_VARIANTS = (  # (label, pallas_forward options); scripts/osc_v2_sweep.py:95-120
     ("banked (K5 rows)", dict(impl="banked")),
@@ -193,25 +193,6 @@ def cosine(ref: torch.Tensor, est: torch.Tensor) -> float:
     return float(ref @ est / (ref.norm() * est.norm()).clamp_min(1e-300))
 
 
-def device_ms(fn, device, iters: int, warmup: int = 3) -> float:
-    """Mean ms of ``fn``: CUDA events over ``iters`` back-to-back calls on
-    the card; host time of one call on the CPU."""
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        fn()
-        return 1e3 * (time.perf_counter() - t0)
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize(device)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize(device)
-    return start.elapsed_time(end) / iters
-
-
 def _plain_fwd(kw: dict, phase, amps, loud, h_start: int):
     if kw["impl"] == "cheb":
         return osc_cheb.osc_cheb_plain(phase, amps, loud, kw.get("resync", 32))
@@ -230,10 +211,11 @@ def _plain_bwd(kw: dict, g, phase, amps, loud, h_start: int):
 
 
 def _timings(fn, plain, device, iters: int) -> Dict[str, Optional[float]]:
-    if device.type != "cuda":
-        return dict(ms=device_ms(fn, device, iters), plain_ms=None)
-    return dict(ms=device_ms(fn, device, iters),
-                plain_ms=device_ms(plain, device, iters=3, warmup=1))
+    if device.type != "cuda":  # the host time of one call
+        return dict(ms=1e3 * microbench(fn, (), iters=1, warmup=0)["seconds_per_call"],
+                    plain_ms=None)
+    return dict(ms=microbench(fn, (), iters=iters, warmup=3)["ms"],
+                plain_ms=microbench(plain, (), iters=3, warmup=1)["ms"])
 
 
 def sweep_fwd(device, shape, h_start: int = 0, iters: int = 20, seed: int = 0,
@@ -377,10 +359,13 @@ def sweep_contract(device, batch: int, conf: Config, iters: int = 10, seed: int 
         for k, a, b in zip(keys, ref[None], ref["bfloat16"]):
             rows.append(dict(label=f"grad[{k}]", cos=cosine(a, b),
                              rel=float((a - b).abs().max() / a.abs().max().clamp_min(1e-30))))
+        on_card = device.type == "cuda"
         for dtype in (None, "bfloat16", None, "bfloat16"):
             osc_frames.set_osc_bwd_contract_dtype(dtype)
+            timed = microbench(grads, (), iters=iters if on_card else 1,
+                               warmup=2 if on_card else 0)
             rows.append(dict(label=f"contract={dtype} fwd+bwd",
-                             ms=device_ms(grads, device, iters, warmup=2)))
+                             ms=timed["ms"] if on_card else 1e3 * timed["seconds_per_call"]))
     finally:
         osc_frames.set_osc_bwd_contract_dtype(previous)
     return rows

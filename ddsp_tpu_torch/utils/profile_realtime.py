@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -44,6 +43,7 @@ import numpy as np
 import torch
 
 from ddsp_tpu_torch.runtime.streaming import BlockSynthesizer
+from ddsp_tpu_torch.utils.profiling import card_name
 
 
 class TimedBlockSynthesizer(BlockSynthesizer):
@@ -250,10 +250,7 @@ def main(argv=None) -> int:
         print("profile_realtime: needs a CUDA device", file=sys.stderr)
         return 2
     result = profile(int(args.get("hops", "200")), window=args.get("window", "1") != "0")
-    result["card"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.splitlines()[0]
+    result["card"] = card_name()
     print(json.dumps(result), flush=True)
     out = args.get("out")
     if out:

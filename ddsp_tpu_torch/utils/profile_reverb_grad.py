@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 from typing import Dict
 
 import numpy as np
@@ -39,7 +38,8 @@ from ddsp_tpu_torch.config import Config
 from ddsp_tpu_torch.device import resolve_device
 from ddsp_tpu_torch.models.synths import reverb_apply, reverb_init
 from ddsp_tpu_torch.ops.cuda import ct_conv as s1
-from ddsp_tpu_torch.utils.ct_conv_ab import cuda_ms, finite
+from ddsp_tpu_torch.utils.ct_conv_ab import finite
+from ddsp_tpu_torch.utils.profiling import card_name, microbench
 
 ROUTES = ("float32", "bfloat16")
 
@@ -86,7 +86,7 @@ def run(device, batch: int, iters: int, rounds: int) -> Dict:
     runs = {k: [] for k in fns}
     for _ in range(rounds):
         for name in ("float32", "bfloat16", "bfloat16", "float32", "fwd_only"):
-            runs[name].append(cuda_ms(fns[name], iters))
+            runs[name].append(microbench(fns[name], (), iters=iters, warmup=3)["ms"])
     for name, ms in runs.items():
         out[f"{name}_ms"] = float(np.mean(ms))
     out["runs_ms"] = runs
@@ -104,12 +104,7 @@ def main(argv=None) -> Dict:
     device = resolve_device(args.device)
     batch = args.batch or (Config().batch_size if device.type == "cuda" else 2)
     result = run(device, batch, args.iters, args.rounds)
-    if device.type == "cuda":
-        result["device"] = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True).stdout.strip().splitlines()[0]
-    else:
-        result["device"] = "cpu"
+    result["device"] = card_name(device)
     line = json.dumps(finite(result))
     print(line, flush=True)
     if args.out:

@@ -23,22 +23,15 @@ from __future__ import annotations
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
+from ddsp_tpu_torch.utils.profiling import card_name, kernels_under
+
 STAGES = ("features", "controller", "oscillator", "noise", "reverb")
-
-
-def _kernels_under(event):
-    """Device kernels launched inside a profiler event and its children."""
-    found = list(event.kernels)
-    for child in event.cpu_children:
-        found += _kernels_under(child)
-    return found
 
 
 def profile(n_streams: int, hops: int, seed: int = 0) -> dict:
@@ -76,7 +69,7 @@ def profile(n_streams: int, hops: int, seed: int = 0) -> dict:
     stages = {}
     for name in STAGES:
         ranges = [e for e in events if e.name == name]
-        kernels = [k for e in ranges for k in _kernels_under(e)]
+        kernels = [k for e in ranges for k in kernels_under(e)]
         stages[name] = {
             "device_ms_per_hop": 1e-3 * sum(k.duration for k in kernels) / hops,
             "kernels_per_hop": len(kernels) / hops,
@@ -107,10 +100,7 @@ def main(argv=None) -> int:
     slots = [int(x) for x in args.get("n_streams", "256,1024,2048").split(",")]
     hops = int(args.get("hops", "30"))
     out = args.get("out")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.splitlines()[0]
+    card = card_name()
     results = []
     for n in slots:
         r = profile(n, hops)

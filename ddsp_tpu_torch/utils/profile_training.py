@@ -43,15 +43,15 @@ from __future__ import annotations
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 
 from ddsp_tpu_torch.ops.cuda import launch_counts
+from ddsp_tpu_torch.utils.profiling import (card_name, device_events, host_ranges,
+                                            launch_starts_ns)
 
 STAGES = ("encoder", "controller", "oscillator_bank", "filtered_noise", "reverb",
           "loss", "backward", "optimizer")
@@ -67,18 +67,6 @@ def _batch(conf, seed: int, device):
         "audio": 0.1 * rng.standard_normal((n, conf.example_length)),
     }
     return {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in arrays.items()}
-
-
-def _device_ops(prof):
-    """(device operations, {correlation id: host start ns of the CUDA
-    runtime call that launched it}) of a finished profiler window.  The
-    device's copies of the range annotations are left out."""
-    events = prof.profiler.kineto_results.events()
-    ops = [e for e in events
-           if e.device_type() == DeviceType.CUDA and e.name() not in STAGES]
-    launches = {e.correlation_id(): e.start_ns() for e in events
-                if e.device_type() == DeviceType.CPU and e.name().startswith("cu")}
-    return events, ops, launches
 
 
 def profile(steps: int, batch_size: int, seed: int = 0, stft_impl: str = "auto",
@@ -122,16 +110,13 @@ def profile(steps: int, batch_size: int, seed: int = 0, stft_impl: str = "auto",
             state, metrics = step(state, batch)
         torch.cuda.synchronize()
         window_ms = 1e3 * (time.perf_counter() - t0)
-    _, ops, _ = _device_ops(prof)
-    busy_ms = 1e-6 * sum(e.duration_ns() for e in ops)
+    busy_ms = 1e-6 * sum(e.duration_ns() for e in device_events(prof))
 
     with torch.profiler.profile(activities=activities) as prof:
         for _ in range(steps):
             state, metrics = step(state, batch)
             torch.cuda.synchronize()
-    events, ops, launches = _device_ops(prof)
-    ranges = [(e.name(), e.start_ns(), e.end_ns()) for e in events
-              if e.name() in STAGES and e.device_type() != DeviceType.CUDA]
+    ops, launches, ranges = device_events(prof), launch_starts_ns(prof), host_ranges(prof, STAGES)
     per_stage = {name: [0, 0] for name in STAGES + ("other",)}
     by_kernel = {}
     unmatched = 0
@@ -183,10 +168,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_training: needs a CUDA device", file=sys.stderr)
         return 2
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.splitlines()[0]
+    card = card_name()
     result = profile(int(args.get("steps", "10")), int(args.get("batch_size", "16")),
                      stft_impl=args.get("stft_impl", "auto"),
                      finetune=args.get("finetune", "0") != "0")

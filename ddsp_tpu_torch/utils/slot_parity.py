@@ -187,11 +187,9 @@ def main(argv=None) -> int:
     check = [int(i) for i in args.check.split(",")]
     result = run(device, conf, args.slots, args.hops, check)
     if device.type == "cuda":
-        import subprocess
+        from ddsp_tpu_torch.utils.profiling import card_name
 
-        result["device"] = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True).stdout.strip()
+        result["device"] = card_name(device)
     print(json.dumps(result))
     if args.out:
         with open(args.out, "w") as f:

@@ -38,6 +38,7 @@ from ddsp_tpu_torch.runtime.multistream import MultiStreamServer
 from ddsp_tpu_torch.runtime.streaming import BlockSynthesizer
 from ddsp_tpu_torch.runtime.threaded import ThreadedSynthesizer
 from ddsp_tpu_torch.training import train, trainer
+from ddsp_tpu_torch.utils import multistream_frontier, server_drive
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the training slice's modules, which the import walk below must reach
@@ -80,6 +81,11 @@ EXPERIMENT_MODULES = (
     "ddsp_tpu_torch.experiments.lbfgs", "ddsp_tpu_torch.experiments.style_transfer",
     "ddsp_tpu_torch.experiments.dream", "ddsp_tpu_torch.experiments.ui",
     "ddsp_tpu_torch.utils.gl_quality_curve",
+)
+# the measurement layer's modules
+MEASUREMENT_MODULES = (
+    "ddsp_tpu_torch.utils.profiling", "ddsp_tpu_torch.utils.roofline",
+    "ddsp_tpu_torch.utils.multistream_frontier", "ddsp_tpu_torch.utils.server_drive",
 )
 # the offline reconstruction slice's modules
 RECONSTRUCT_MODULES = (
@@ -125,6 +131,7 @@ def test_every_module_imports_without_jax():
     assert set(RECONSTRUCT_MODULES) <= set(names)
     assert set(PARALLEL_MODULES) <= set(names)
     assert set(EXPERIMENT_MODULES) <= set(names)
+    assert set(MEASUREMENT_MODULES) <= set(names)
     assert loaded == "", f"port imports pulled in {loaded}"
 
 
@@ -207,6 +214,7 @@ def _features(conf, n=4):
     "make_parallel_train_step", "make_sp_train_step", "make_tp_train_step", "style_transfer_spec",
     "style_transfer_audio",
     "style_transfer_cli", "dream", "dream_file", "dream_cli",
+    "frontier_measure", "frontier_cli", "server_drive", "server_drive_cli",
 ])
 def test_entry_points_raise_without_cuda(no_cuda, entry, tmp_path):
     params, crepe = decoder_init(CONF), crepe_init()
@@ -268,6 +276,14 @@ def test_entry_points_raise_without_cuda(no_cuda, entry, tmp_path):
             dream.dream_file(crepe, str(tmp_path / "in.wav"), str(tmp_path / "out.wav"))
         elif entry == "dream_cli":
             dream.main([str(tmp_path / n) for n in ("tiny.pth", "in.wav", "out.wav")])
+        elif entry == "frontier_measure":
+            multistream_frontier.measure(2, params, crepe, CONF)
+        elif entry == "frontier_cli":
+            multistream_frontier.main(["--slots=2"])
+        elif entry == "server_drive":
+            server_drive.drive(params, crepe, CONF, clients=1, slots=1)
+        elif entry == "server_drive_cli":
+            server_drive.main(["--clients=1"])
         elif entry == "finetune_cli":
             train.main([f"--data_dir={tmp_path}", "--num_steps=1", "--finetune_crepe=1",
                         "--pitch_decode=weighted"])
