@@ -253,14 +253,44 @@ Phases, each of which must pass (any failure exits non-zero):
    ``profiling.deoptimized()``, the ops the deterministic mode warned
    about printed, its settings required restored after it.
 
+20. the JAX trainer's Orbax checkpoint on the card, with no jax, orbax,
+   tensorstore or zstandard imported before, during or after: (a) the
+   committed fixture ``tests/torch_data/jax_ckpt/`` (written by
+   ``tests/make_jax_ckpt_fixture.py``) read by ``models/orbax.py`` through
+   the system's libzstd, every leaf's SHA-256 equal to ``expected.npz``'s;
+   (b) ``restore_checkpoint`` on ``cuda`` and 2 train steps on the batches
+   of its stated seeds (their digests checked), held against the JAX
+   package's own 2 steps stored with it by phase 6's criteria (params, and
+   Adam's mu and nu, which carry the gradients, leaf by leaf within 1e-3
+   of the leaf's norm plus 1e-6 of the tree's; the parameters also at
+   allclose(2e-3, 3e-3)), Adam's count, the step, the plateau's integer
+   fields and the
+   key equal, losses within 1e-5 relative, K1 and K2 once a step; (c) a
+   full ``Config()`` state built by ``train_state_from_jax``
+   from a seeded numpy tree in JAX's layout (seeded nonzero moments, count
+   5, a plateau state past its first windows) resumed on the card and on
+   the CPU, 2 steps at batch 2 on each, held card vs CPU by phase 6's
+   criteria on its float32 reverb route after the first step, which
+   starts from equal weights, and at phase 9's (loss 1e-4 relative, mu
+   and nu 5e-3 a leaf) after the second, when Adam has parted the
+   weights; then (d) on the default bf16 route at phase 13's bf16
+   criterion (5e-3 a leaf): there
+   K1, K2 (and its overlap-add) and S1 through the fused d/dsignal entry
+   once a resumed step (S1 never on the float32 route), K1/K2 on the
+   rotation fill;
+   (e) ``reconstruct.main(['--checkpoint_dir', fixture])`` and
+   ``server.load_decoder`` give the fixture's decoder bit for bit on the
+   card.
+
 The line before the last is a JSON object describing each kernel (launches
 on its main path, the real-time path's launches of K5 and K1 as
 ``launches_realtime``, the reconstruction's K1 launches as
 ``launches_reconstruct`` with its timing at that shape, phase 17's
 launches of K1, K2 and S1 as ``launches_parallel`` (K1's by render;
 K1's and K2's by DP, SP, DP x TP and DP x SP x TP steps; S1's by DP and
-DP x TP steps) and K1 at the TP
-shard shape as ``parallel_tp_shard``, agreement with its
+DP x TP steps), K1 at the TP
+shard shape as ``parallel_tp_shard``, phase 20's launches of K1, K2, its
+overlap-add and S1 as ``launches_jax_checkpoint``, agreement with its
 plain version, kernel, plain, bound and library times); the last line is
 ``{"ok": true, "device": {...}}``.
 Without CUDA the script exits non-zero and prints no result.  It imports
@@ -3239,6 +3269,316 @@ def phase_measurement(device, smi: str, train_ms: float):
     return out
 
 
+# --------------------------------------------------------------- phase 20
+
+# the JAX trainer's checkpoint that tests/make_jax_ckpt_fixture.py writes,
+# and the packages the card's machine lacks, which the reader must not need
+JAX_CKPT = os.path.join(ROOT, "tests", "torch_data", "jax_ckpt")
+JAX_CKPT_STEP = "step_00000003"
+CHECKPOINT_PACKAGES = ("jax", "orbax", "tensorstore", "zstandard")
+# the card's resumed steps vs the JAX package's on the CPU: the loss
+CKPT_LOSS_RTOL = 1e-5
+# (c): a full-width state resumed on the card and on the CPU, batch 2 as in
+# phase 6, count 5 and a plateau state past its first windows; seeded Adam
+# moments small beside the gradients (whose norm is 3.1e5 at these
+# weights, phase 20's log), so that after a step the moments carry the
+# gradients that the two devices computed
+CKPT_FULL_STEPS = 2
+CKPT_MOMENT_SCALE = 1e-3
+
+
+def batch_digest(batch) -> str:
+    """A digest of a numpy batch (``tests/make_jax_ckpt_fixture.py``'s)."""
+    from ddsp_tpu_torch.models.orbax import leaf_digest
+
+    return leaf_digest(np.frombuffer("".join(leaf_digest(batch[k]) for k in sorted(batch))
+                                     .encode(), np.uint8))
+
+
+def hold_trees(got: dict, want: dict, what: str, rtol: float = GRAD_RTOL,
+               params_by_leaf: bool = False) -> dict:
+    """A resumed state (``convert.train_state_to_jax``, flattened) against
+    another, by phase 6's criteria: Adam's mu and nu, which carry the
+    gradients, leaf by leaf within ``rtol`` of the leaf's norm plus
+    GRAD_FLOOR of the tree's; the parameters at allclose(PARAM_RTOL,
+    PARAM_ATOL), since an Adam step moves an entry by up to lr whatever
+    its gradient (phase 6's sanity check), and with ``params_by_leaf``
+    leaf by leaf as the moments too; Adam's count, the step, the plateau's
+    integer fields and the key equal.  Returns the worst leaves."""
+    import torch
+
+    require(got.keys() == want.keys(), f"{what}: leaves {sorted(got.keys() ^ want.keys())}")
+    params = [k for k in want if k.startswith("params.")]
+    ratio = {k: float(np.max(np.abs(np.asarray(got[k], np.float64) - want[k])
+                             / (PARAM_ATOL + PARAM_RTOL * np.abs(np.asarray(want[k], np.float64))),
+                             initial=0.0)) for k in params}
+    leaf = max(ratio, key=ratio.get)
+    log(f"[jax-ckpt] {what}: params worst leaf {leaf}: |diff| / (atol + rtol |want|) = "
+        f"{ratio[leaf]:.4f} (< 1 passes)")
+    require(ratio[leaf] < 1.0, f"{what}: params leaf {leaf} differs: {ratio[leaf]:.4f} >= 1")
+    worst = {"params": dict(leaf=leaf, criterion=ratio[leaf])}
+    for tree in ("params",) * params_by_leaf + ("opt_state.0.0.mu", "opt_state.0.0.nu"):
+        keys = [k for k in want if k.startswith(tree + ".")]
+        g = {k: torch.from_numpy(np.asarray(got[k], np.float64)) for k in keys}
+        w = {k: torch.from_numpy(np.asarray(want[k], np.float64)) for k in keys}
+        leaf, crit, rel = worst_leaf(g, w, rtol)
+        log(f"[jax-ckpt] {what}: {tree} worst leaf {leaf}: |diff| {rel:.3e} of its norm, "
+            f"criterion {crit:.4f} at rtol {rtol:g} (< 1 passes)")
+        worst[tree if tree != "params" else "params_by_leaf"] = dict(
+            leaf=leaf, criterion=crit, rel=rel, rtol=rtol)
+        if rtol != GRAD_RTOL:
+            leaf6, crit6, _ = worst_leaf(g, w)
+            log(f"[jax-ckpt] {what}: {tree} at rtol {GRAD_RTOL:g}, for information: worst "
+                f"leaf {leaf6}, criterion {crit6:.4f}")
+            worst[tree if tree != "params" else "params_by_leaf"]["criterion_at_1e-3"] = crit6
+        require(crit < 1.0, f"{what}: {tree} leaf {leaf} differs: criterion {crit:.4f} >= 1")
+    for k in ("step", "rng", "opt_state.0.0.count", "opt_state.1.plateau_count",
+              "opt_state.1.cooldown_count", "opt_state.1.count"):
+        require(np.array_equal(np.asarray(got[k], np.int64), np.asarray(want[k], np.int64)),
+                f"{what}: {k} {got[k]} vs {want[k]}")
+    worst["plateau"] = {f: [float(got[f"opt_state.1.{f}"]), float(want[f"opt_state.1.{f}"])]
+                        for f in ("scale", "best_value", "avg_value")}
+    return worst
+
+
+def full_width_jax_tree(conf, seed: int) -> dict:
+    """A JAX-layout train state at ``conf``'s width from numpy: a seeded
+    decoder's parameters, seeded nonzero Adam moments, count 5, a plateau
+    state past its first windows, step 5, a seeded key.  The moments are
+    ones Adam can hold, ``mu**2 <= nu`` entry by entry (``mu = s z1``,
+    ``nu = s**2 (z1**2 + z2**2)``): drawn apart, a tiny ``nu`` under a
+    large ``mu`` makes an update of ~1 an entry that float noise in the
+    gradient then scales differently on the card and on the CPU."""
+    from ddsp_tpu_torch.models.controller import decoder_init
+    from ddsp_tpu_torch.models.convert import decoder_to_jax
+    from ddsp_tpu_torch.models.orbax import flatten
+
+    rng = np.random.default_rng(seed)
+    params = decoder_to_jax(decoder_init(conf, seed=seed))
+    mu, nu = {}, {}
+
+    def draw(node, path):
+        if isinstance(node, dict):
+            return {k: draw(v, f"{path}.{k}") for k, v in node.items()}
+        if isinstance(node, list):
+            return [draw(v, f"{path}.{i}") for i, v in enumerate(node)]
+        z1, z2 = rng.standard_normal((2, *np.shape(node)))
+        mu[path] = (CKPT_MOMENT_SCALE * z1).astype(np.float32)
+        nu[path] = (CKPT_MOMENT_SCALE**2 * (z1 * z1 + z2 * z2)).astype(np.float32)
+        return path
+
+    paths = draw(params, "")
+
+    def take(node, moments):
+        if isinstance(node, dict):
+            return {k: take(v, moments) for k, v in node.items()}
+        if isinstance(node, list):
+            return [take(v, moments) for v in node]
+        return moments[node]
+
+    tree = {"params": params,
+            "opt_state": [[{"count": np.int32(5), "mu": take(paths, mu), "nu": take(paths, nu)},
+                           None],
+                          {"scale": np.float32(0.5), "best_value": np.float32(5.5e4),
+                           "plateau_count": np.int32(2), "cooldown_count": np.int32(0),
+                           "count": np.int32(0), "avg_value": np.float32(0.0)}],
+            "step": np.int32(5), "rng": rng.integers(0, 2**32, 2, dtype=np.uint32)}
+    require(all(np.isfinite(v).all() for v in flatten(tree).values() if v is not None),
+            "the full-width state is not finite")
+    return tree
+
+
+def phase_jax_checkpoint(device, full=None):
+    """Phase 20: the JAX trainer's Orbax checkpoint on the card, without
+    jax, orbax, tensorstore or zstandard; returns the launches of (b) and
+    (c).  ``full`` is (c)'s config (full ``Config()`` width at batch 2)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from ddsp_tpu_torch import reconstruct
+    from ddsp_tpu_torch.config import Config
+    from ddsp_tpu_torch.models import convert, orbax
+    from ddsp_tpu_torch.models.convert import load_lightning_decoder
+    from ddsp_tpu_torch.native import zstd
+    from ddsp_tpu_torch.ops.cuda import launch_counts, osc_frames, reset_launch_counts
+    from ddsp_tpu_torch.ops.fir import PRNGKey
+    from ddsp_tpu_torch.runtime import server
+    from ddsp_tpu_torch.training import trainer
+
+    def absent(where: str) -> None:
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in CHECKPOINT_PACKAGES)
+        require(not loaded, f"{where}: {loaded} imported")
+
+    # (a) the fixture, leaf by leaf against its digests
+    absent("before the read")
+    step_dir = os.path.join(JAX_CKPT, JAX_CKPT_STEP)
+    expected = dict(np.load(os.path.join(JAX_CKPT, "expected.npz")))
+    t0 = time.perf_counter()
+    tree = orbax.read_orbax(step_dir)
+    read_s = time.perf_counter() - t0
+    leaves = {k: v for k, v in orbax.flatten(tree).items() if v is not None}
+    digests = {k[len("digest:"):]: str(v) for k, v in expected.items() if k.startswith("digest:")}
+    require(leaves.keys() == digests.keys(),
+            f"fixture leaves {sorted(leaves.keys() ^ digests.keys())} read or missing")
+    bad = sorted(k for k, v in leaves.items() if orbax.leaf_digest(v) != digests[k])
+    require(not bad, f"fixture leaves whose SHA-256 differs: {bad}")
+    absent("after the read")
+    log(f"[jax-ckpt] read {len(leaves)} leaves of {JAX_CKPT_STEP} ({sum(v.nbytes for v in leaves.values())} "
+        f"bytes) in {read_s * 1e3:.2f} ms through libzstd {zstd.version()}, every SHA-256 equal; "
+        f"no jax, orbax, tensorstore or zstandard imported")
+    out = {"read_s": read_s, "leaves": len(leaves), "libzstd": zstd.version()}
+
+    # (b) resume the fixture on the card; 2 steps against the JAX package's
+    with open(os.path.join(JAX_CKPT, "config.json")) as f:
+        conf = Config.from_json(f.read())
+    state = trainer.restore_checkpoint(step_dir, trainer.init_state(PRNGKey(conf.seed), conf,
+                                                                    device))
+    require(state.step == 3 and state.rng.device.type == "cuda"
+            and all(p.device.type == "cuda" for p in state.opt_state.adam.mu),
+            f"restored step {state.step} on {state.rng.device}")
+    step = trainer.make_train_step(conf)
+    seeds = [int(s) for s in expected["resume_seeds"]]
+    losses, norms = [], []
+    reset_launch_counts()  # the main path from here
+    for i, s in enumerate(seeds):
+        b = feature_batch(conf, conf.batch_size, s)
+        require(batch_digest(b) == str(expected[f"batch_digest:{i}"]),
+                f"resume batch {i} (seed {s}) is not the fixture's")
+        state, m = step(state, {k: torch.from_numpy(v).to(device) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    torch.cuda.synchronize()
+    counts, by_variant = launch_counts(), dict(osc_frames.VARIANT_LAUNCHES)
+    log(f"[jax-ckpt] (b) resumed at step 3 on {device}, {len(seeds)} steps of batch "
+        f"{conf.batch_size} (osc_impl {conf.osc_impl!r}, reverb gradient "
+        f"{conf.reverb_grad_matmul_dtype}): launches {({k: v for k, v in counts.items() if v})}, "
+        f"by variant {by_variant}")
+    require(counts["osc_frames_fwd"] == counts["osc_frames_bwd"] == len(seeds),
+            f"K1 {counts['osc_frames_fwd']}, K2 {counts['osc_frames_bwd']} launches in "
+            f"{len(seeds)} resumed steps")
+    want_losses, want_norms = expected["losses"], expected["grad_norms"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    norm_err = max(abs(a - b) / abs(b) for a, b in zip(norms, want_norms))
+    log(f"[jax-ckpt] (b) losses {losses} vs JAX {want_losses.tolist()}: {loss_err:.3e} relative; "
+        f"grad_norm {norm_err:.3e} relative")
+    require(loss_err <= CKPT_LOSS_RTOL, f"resumed losses {loss_err:.3e} relative from JAX's")
+    want = {k[len("after:"):]: v for k, v in expected.items() if k.startswith("after:")}
+    got = {k: v for k, v in orbax.flatten(convert.train_state_to_jax(state)).items()
+           if v is not None}
+    out["fixture"] = dict(hold_trees(got, want, "(b) card vs JAX", params_by_leaf=True),
+                          losses=losses,
+                          loss_rel=loss_err, grad_norm_rel=norm_err,
+                          launches={k: v for k, v in counts.items() if v})
+
+    # (c) a full-width state resumed on the card and on the CPU: on phase
+    # 6's float32 reverb route at its criterion, then (d) on the default
+    # bf16 route, where S1 runs, at phase 13's bf16 criterion
+    full = full or Config(batch_size=2)
+    jtree = full_width_jax_tree(full, SEED + 20)
+    rot = {k: osc_frames.variant_name(k, "rot") for k in ("osc_frames_fwd", "osc_frames_bwd")}
+    for route, rtol in (("float32", GRAD_RTOL), ("bfloat16", FT_GRAD_RTOL)):
+        conf_r = full.replace(reverb_grad_matmul_dtype=route)
+        runs = {}
+        for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            st = convert.train_state_from_jax(jtree, trainer.init_state(PRNGKey(SEED), conf_r, dev))
+            st_step = trainer.make_train_step(conf_r)
+            if name == "card":
+                reset_launch_counts()  # the main path from here
+            t0, metrics, trees = time.perf_counter(), [], []
+            for i in range(CKPT_FULL_STEPS):
+                b = feature_batch(conf_r, conf_r.batch_size, SEED + 21 + i)
+                st, m = st_step(st, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+                trees.append({k: v for k, v in orbax.flatten(convert.train_state_to_jax(st))
+                              .items() if v is not None})
+            if name == "card":
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in launch_counts().items() if v}
+                variants = dict(osc_frames.VARIANT_LAUNCHES)
+            runs[name] = (metrics, time.perf_counter() - t0, trees)
+        (m_gpu, s_gpu, t_gpu), (m_cpu, s_cpu, t_cpu) = runs["card"], runs["cpu"]
+        what = f"(c) card vs CPU, full width, {route} reverb gradient"
+        log(f"[jax-ckpt] {what}, batch 2, resumed at step 5: card {m_gpu} in {s_gpu:.2f} s "
+            f"(the state read back after each step), CPU {m_cpu} in {s_cpu:.2f} s")
+        held = {}
+        for i, ((lg, ng), (lc, nc)) in enumerate(zip(m_gpu, m_cpu)):
+            # the first step starts from equal weights: phase 6's criteria
+            # (phase 13's 5e-3 a leaf on the bf16 route); after it Adam has
+            # moved the two apart by their gradients' difference, so the
+            # second step is held to the train-step parity criteria of phase
+            # 9 (loss 1e-4 relative, 5e-3 a leaf), as the loss alone would be
+            tol = max(LOSS_ATOL, LOSS_RTOL * abs(lc)) if i == 0 else FT_LOSS_RTOL * abs(lc)
+            require(abs(lg - lc) < tol, f"{what}: step {i + 1} loss card {lg} vs CPU {lc} "
+                    f"(tolerance {tol:.3e})")
+            require(abs(ng - nc) <= GRAD_RTOL * nc, f"{what}: grad_norm card {ng} vs CPU {nc}")
+            held[f"step_{i + 1}"] = hold_trees(t_gpu[i], t_cpu[i], f"{what}, step {i + 1}",
+                                               rtol if i == 0 else FT_GRAD_RTOL)
+        log(f"[jax-ckpt] (d) {route} route, launches in {CKPT_FULL_STEPS} resumed steps: "
+            f"{counts}, by variant {variants}")
+        s1 = CKPT_FULL_STEPS if route == "bfloat16" else 0
+        want_counts = {"osc_frames_fwd": CKPT_FULL_STEPS, "osc_frames_bwd": CKPT_FULL_STEPS,
+                       "osc_frames_overlap_add": CKPT_FULL_STEPS}
+        if s1:
+            want_counts.update(ct_conv=s1, ct_conv_dsignal=s1)
+        require(counts == want_counts, f"(d) {route} route launched {counts} in "
+                f"{CKPT_FULL_STEPS} resumed steps, not {want_counts}")
+        require(variants == {rot["osc_frames_fwd"]: CKPT_FULL_STEPS,
+                             rot["osc_frames_bwd"]: CKPT_FULL_STEPS},
+                f"(d) K1/K2 launched {variants}, not on the rotation fill")
+        out[f"full_width_{route}"] = dict(held, launches=counts, card_s=s_gpu, cpu_s=s_cpu)
+
+    # (e) the other readers, on the card
+    want_params = {k: v for k, v in leaves.items() if k.startswith("params.")}
+    seen = []
+    apply = reconstruct.autoencoder_apply
+
+    def recorded(params, *args, **kwargs):  # the decoder reconstruct_file runs
+        seen.append({k: v.detach().clone() for k, v in params["decoder"].state_dict().items()})
+        return apply(params, *args, **kwargs)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wav, exported = os.path.join(tmp, "in.wav"), os.path.join(tmp, "dec.ckpt")
+        write_glide_wav(wav, 2.0, conf.sample_rate, SEED + 20)
+        reconstruct.autoencoder_apply = recorded
+        stdout = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(stdout):
+                reconstruct.main([wav, os.path.join(tmp, "out.wav"),
+                                  f"--checkpoint_dir={JAX_CKPT}", f"--export_torch={exported}",
+                                  f"--device={device.type}"])
+        finally:
+            reconstruct.autoencoder_apply = apply
+        stats = json.loads(next(ln for ln in stdout.getvalue().splitlines() if ln.startswith("{")))
+        for name, decoder in (
+                ("reconstruct (on the card)", {k: v for k, v in seen[0].items()}),
+                ("reconstruct --export_torch", load_lightning_decoder(exported, conf).state_dict()),
+                ("server.load_decoder (on the card)", {
+                    k: v.to(device) for k, v in server.load_decoder(
+                        conf.replace(checkpoint_dir=JAX_CKPT)).state_dict().items()})):
+            jax_tree = orbax.flatten({"params": convert.decoder_to_jax(
+                _module_from(decoder, conf))})
+            require(jax_tree.keys() == want_params.keys() and all(
+                np.array_equal(jax_tree[k], v) for k, v in want_params.items()),
+                f"{name}: the decoder is not the fixture's parameters bit for bit")
+        require(stats["device"].startswith("cuda") and all(
+            v.device.type == "cuda" for v in seen[0].values()), f"reconstruct ran on {stats}")
+    log(f"[jax-ckpt] (e) reconstruct --checkpoint_dir (stats {stats}) and server.load_decoder "
+        f"give the fixture's decoder bit for bit on the card")
+    absent("at the end of the phase")
+    return out
+
+
+def _module_from(state_dict, conf):
+    """A Decoder holding ``state_dict`` (on any device)."""
+    from ddsp_tpu_torch.models.controller import Decoder
+
+    decoder = Decoder(conf).to(next(iter(state_dict.values())).device)
+    decoder.load_state_dict(state_dict)
+    return decoder
+
+
 def timed_phase(phase: int, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3301,6 +3641,7 @@ def main() -> int:
     par = timed(17, phase_parallel, device, smi)
     timed(18, phase_experiments, device, smi)
     measured = timed(19, phase_measurement, device, smi, auto_ms)
+    jax_ckpt = timed(20, phase_jax_checkpoint, device)
 
     no_library = ("null: no single PyTorch call computes a harmonic sine-bank render or its "
                   "gradient; the nearest is the plain version")
@@ -3391,6 +3732,13 @@ def main() -> int:
     for k in kernels:
         if k["name"] in contract_launches:
             k["launches_contract_step"] = contract_launches[k["name"]]
+        if k["name"] in ("osc_frames_fwd", "osc_frames_bwd", "osc_frames_overlap_add",
+                         "ct_conv", "ct_conv_dsignal"):
+            k["launches_jax_checkpoint"] = {
+                "resume_fixture": jax_ckpt["fixture"]["launches"].get(k["name"], 0),
+                "resume_full_width": jax_ckpt["full_width_bfloat16"]["launches"].get(k["name"], 0),
+                "resume_full_width_float32_reverb": jax_ckpt["full_width_float32"][
+                    "launches"].get(k["name"], 0)}
         k["kernel_ms"] = k["ms"]
     print(json.dumps({"kernels": finite_json(kernels)}), flush=True)
     # one card driven, whatever else the host shows

@@ -13,17 +13,20 @@
   checkpoints hold; ``find_latest_lightning_checkpoint`` finds the newest
   of them in a ``lightning_logs`` tree;
 * ``decoder_from_orbax`` reads the decoder of a ``step_*`` directory that
-  the JAX package's trainer wrote with Orbax, through ``tensorstore``
-  alone (imported at the call; no jax or orbax).
+  the JAX package's trainer wrote with Orbax (``models/orbax.py``: numpy
+  and the system's libzstd; no tensorstore, orbax or jax), and
+  ``train_state_from_jax`` turns the whole JAX train state (parameters,
+  optax's Adam and plateau state, step, key) into the port's, so training
+  resumes from such a directory.
 """
 
 from __future__ import annotations
 
+import copy
 import glob
-import json
 import os
 import re
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -32,6 +35,7 @@ from torch import nn
 from ddsp_tpu_torch.config import Config
 from ddsp_tpu_torch.models.controller import Decoder
 from ddsp_tpu_torch.models.crepe import CAPACITIES, Crepe
+from ddsp_tpu_torch.models.orbax import flatten, is_orbax_checkpoint, read_orbax  # noqa: F401 (re-exported)
 
 
 def _t(x) -> torch.Tensor:
@@ -80,72 +84,31 @@ def find_latest_lightning_checkpoint(logs_dir: str, version: int) -> str:
     return max(files, key=epoch_of)
 
 
-def is_orbax_checkpoint(path: str) -> bool:
-    """Whether ``path`` is a ``step_*`` directory written by Orbax (the JAX
-    package's trainer, ``ddsp_tpu/training/trainer.py:373-443``)."""
-    return any(os.path.exists(os.path.join(path, f)) for f in ("_METADATA", "manifest.ocdbt"))
-
-
-def _orbax_leaves(path: str) -> Tuple[List[List[str]], bool]:
-    """The key path of every leaf in an Orbax checkpoint's ``_METADATA``,
-    and whether its arrays are zarr3."""
-    with open(os.path.join(path, "_METADATA")) as f:
-        meta = json.load(f)
-    if "tree_metadata" not in meta:
-        raise FileNotFoundError(
-            f"{path}: an Orbax checkpoint of the JAX package whose _METADATA lists no "
-            "arrays (an unfinished save, or not its trainer's)")
-    return [[str(k["key"]) for k in leaf["key_metadata"]]
-            for leaf in meta["tree_metadata"].values()], bool(meta.get("use_zarr3"))
-
-
 def decoder_from_orbax(path: str, conf: Config) -> Decoder:
     """The decoder of a JAX-package Orbax checkpoint directory -> :class:`Decoder`.
 
-    Each leaf under ``params`` (or ``params.decoder``, a finetune
-    checkpoint's) is read with ``tensorstore`` from the directory's OCDBT
-    store, under its key path joined with ``.``; the tree then goes through
+    The leaves under ``params`` (or ``params.decoder``, a finetune
+    checkpoint's) are read by ``models/orbax.read_orbax`` (numpy and the
+    system's libzstd; no tensorstore, orbax or jax) and go through
     :func:`decoder_from_jax`.  The optimizer state, step and key are not
-    read (the JAX package's ``reconstruct.load_decoder_params`` reads only
-    the parameters too).  Raises ImportError naming ``tensorstore`` when it
-    is not installed."""
-    try:
-        import tensorstore
-    except ImportError as e:
-        raise ImportError(
-            f"{path} is an Orbax checkpoint of the JAX package: reading it needs the "
-            "'tensorstore' package, which is not installed") from e
-    leaves, zarr3 = _orbax_leaves(path)
-    finetuned = any(k[:2] == ["params", "decoder"] for k in leaves)
-    prefix = ["params", "decoder"] if finetuned else ["params"]
-    tree: Dict = {}
-    base = "file://" + os.path.abspath(path)
-    for keys in leaves:
-        if keys[: len(prefix)] != prefix:
-            continue
-        spec = {"driver": "zarr3" if zarr3 else "zarr",
-                "kvstore": {"driver": "ocdbt", "base": base, "path": ".".join(keys)}}
-        value = tensorstore.open(spec).result().read().result()
-        node = tree
-        for k in keys[len(prefix):-1]:
-            node = node.setdefault(k, {})
-        node[keys[-1]] = np.asarray(value)
-    if "controller" not in tree or "reverb" not in tree:
-        raise KeyError(f"{path}: no decoder parameters under {'.'.join(prefix)}")
-
-    def lists(node):  # {'0': a, '1': b} -> [a, b]: the tree's sequences
-        if not isinstance(node, dict):
-            return node
-        if node and all(k.isdigit() for k in node):
-            return [lists(node[str(i)]) for i in range(len(node))]
-        return {k: lists(v) for k, v in node.items()}
-
-    return decoder_from_jax(lists(tree), conf)
+    read here (the JAX package's ``reconstruct.load_decoder_params`` reads
+    only the parameters too); :func:`train_state_from_jax` takes them."""
+    params = read_orbax(path, prefix=("params",)).get("params", {})
+    tree = params.get("decoder", params)
+    if not isinstance(tree, dict) or "controller" not in tree or "reverb" not in tree:
+        raise KeyError(f"{path}: no decoder parameters under params or params.decoder")
+    return decoder_from_jax(tree, conf)
 
 
 def decoder_from_jax(np_tree: Dict, conf: Config) -> Decoder:
     """ddsp_tpu decoder tree ``{'controller': ..., 'reverb': ...}`` with
     numpy leaves -> :class:`Decoder`."""
+    return decoder_from_state_dict(_decoder_state_dict(np_tree), conf)
+
+
+def _decoder_state_dict(np_tree: Dict) -> Dict[str, torch.Tensor]:
+    """The decoder tree's leaves under the :class:`Decoder`'s state-dict
+    names: the one layout map of the parameters and of Adam's moments."""
     ctrl = np_tree["controller"]
     sd: Dict[str, torch.Tensor] = {}
 
@@ -169,7 +132,7 @@ def decoder_from_jax(np_tree: Dict, conf: Config) -> Decoder:
         sd[f"controller.{head}.bias"] = _t(ctrl[head]["bias"])
     for leaf in ("noise", "decay", "wet"):
         sd[f"reverb.{leaf}"] = _t(np_tree["reverb"][leaf])
-    return decoder_from_state_dict(sd, conf)
+    return sd
 
 
 def decoder_to_jax(decoder: Decoder) -> Dict:
@@ -224,8 +187,18 @@ def crepe_from_jax(np_tree: Dict) -> Crepe:
         if spec["out_channels"][0] == first_out
     )
     model = Crepe(capacity)
+    result = model.load_state_dict(_crepe_state_dict(np_tree), strict=False)
+    missing = [k for k in result.missing_keys
+               if not k.endswith("num_batches_tracked")]
+    if missing or result.unexpected_keys:
+        raise KeyError(f"CREPE tree mismatch: {missing} {result.unexpected_keys}")
+    return model.eval()
+
+
+def _crepe_state_dict(np_tree: Dict) -> Dict[str, torch.Tensor]:
+    """The CREPE tree's leaves under :class:`Crepe`'s state-dict names."""
     sd = {}
-    for i, layer in enumerate(layers, start=1):
+    for i, layer in enumerate(np_tree["layers"], start=1):
         sd[f"conv{i}.weight"] = _t(layer["weight"])
         sd[f"conv{i}.bias"] = _t(layer["bias"])
         bn = layer["bn"]
@@ -235,12 +208,7 @@ def crepe_from_jax(np_tree: Dict) -> Crepe:
         sd[f"conv{i}_BN.running_var"] = _t(bn["var"])
     sd["classifier.weight"] = _t(np_tree["classifier"]["weight"])
     sd["classifier.bias"] = _t(np_tree["classifier"]["bias"])
-    result = model.load_state_dict(sd, strict=False)
-    missing = [k for k in result.missing_keys
-               if not k.endswith("num_batches_tracked")]
-    if missing or result.unexpected_keys:
-        raise KeyError(f"CREPE tree mismatch: {missing} {result.unexpected_keys}")
-    return model.eval()
+    return sd
 
 
 def crepe_to_jax(crepe: Crepe) -> Dict:
@@ -289,4 +257,124 @@ def autoencoder_to_jax(params) -> Dict:
     return {
         "decoder": decoder_to_jax(params["decoder"]),
         "crepe": crepe_to_jax(params["crepe"]),
+    }
+
+
+def _at(tree, path: str):
+    """``tree``'s node at the ``.``-joined ``path``; a KeyError names it."""
+    node = tree
+    for k in path.split("."):
+        try:
+            node = node[int(k)] if isinstance(node, (list, tuple)) else node[k]
+        except (KeyError, IndexError, TypeError):
+            raise KeyError(f"the JAX train state has no {path}") from None
+    return node
+
+
+def train_state_from_jax(np_tree: Dict, template):
+    """The JAX trainer's whole ``TrainState`` with numpy leaves (what
+    ``models/orbax.read_orbax`` gives for its checkpoint:
+    ``{'params', 'opt_state', 'step', 'rng'}``) -> the port's
+    ``training.trainer.TrainState`` on ``template``'s device.
+
+    ``template`` is a port state of the same model: a decoder state
+    (``init_state``) or a finetune state (``init_finetune_state``, CREPE's
+    BatchNorm statistics made parameters).  Its parameters take the JAX
+    parameters in place.  optax's ``ScaleByAdamState`` ``mu`` and ``nu``
+    have the parameters' tree, so they go through the same layout map
+    (:func:`_decoder_state_dict`, :func:`_crepe_state_dict`) and follow the
+    order of ``template.params.parameters()``; ``count`` stays int32, the
+    six ``ReduceLROnPlateauState`` fields keep the template's dtypes
+    (``best_value`` may be inf), ``step`` becomes an int and the uint32[2]
+    threefry key the port's (2,) int64 key, word for word.  A leaf missing
+    on either side, or of another shape or dtype, raises and names it.
+    """
+    from ddsp_tpu_torch.training.trainer import AdamState, OptState, PlateauState, TrainState
+
+    finetune = not isinstance(template.params, Decoder)
+    want = {p: (np.shape(v), np.asarray(v).dtype) for p, v in flatten(
+        (autoencoder_to_jax if finetune else decoder_to_jax)(template.params)).items()}
+
+    def state_dict(where: str) -> Dict[str, torch.Tensor]:
+        got = flatten(_at(np_tree, where))
+        missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+        if missing or extra:
+            raise KeyError(f"{where}: leaves the JAX state lacks {[f'{where}.{p}' for p in missing]}, "
+                           f"leaves the port's state lacks {[f'{where}.{p}' for p in extra]}")
+        for p, (shape, dtype) in want.items():
+            if (np.shape(got[p]), np.asarray(got[p]).dtype) != (shape, dtype):
+                raise ValueError(f"{where}.{p}: {np.asarray(got[p]).dtype} of shape "
+                                 f"{np.shape(got[p])} in the JAX state, {dtype} of shape "
+                                 f"{shape} in the port's")
+        tree = _at(np_tree, where)
+        if not finetune:
+            return _decoder_state_dict(tree)
+        return {**{f"decoder.{k}": v for k, v in _decoder_state_dict(tree["decoder"]).items()},
+                **{f"crepe.{k}": v for k, v in _crepe_state_dict(tree["crepe"]).items()}}
+
+    device = template.rng.device
+    names = [n for n, _ in template.params.named_parameters()]
+    params = state_dict("params")
+    buffers = sorted(set(params) - set(names))
+    if buffers:
+        raise KeyError(f"the JAX state optimises {buffers}, which the port's template keeps "
+                       "as buffers (a finetune template needs make_statistics_trainable)")
+    moments = {m: state_dict(f"opt_state.0.0.{m}") for m in ("mu", "nu")}
+    empty = _at(np_tree, "opt_state.0.1")  # optax's EmptyState: None, or ()
+    if (empty is not None and len(empty)) or len(_at(np_tree, "opt_state")) != 2:
+        raise KeyError("opt_state: not optax.chain(optax.adam(lr), reduce_on_plateau(...))'s "
+                       "state ((ScaleByAdamState, EmptyState), ReduceLROnPlateauState)")
+
+    def scalar(where: str, like: torch.Tensor) -> torch.Tensor:
+        value = np.asarray(_at(np_tree, where))
+        dtype = torch.empty((), dtype=like.dtype).numpy().dtype
+        if value.shape != () or value.dtype != dtype:
+            raise ValueError(f"{where}: {value.dtype}{list(value.shape)} in the JAX state, "
+                             f"{dtype}[] in the port's")
+        return torch.from_numpy(value.copy()).to(device)
+
+    adam, plateau = template.opt_state
+    count = scalar("opt_state.0.0.count", adam.count)
+    plateau = PlateauState(**{f: scalar(f"opt_state.1.{f}", getattr(plateau, f))
+                              for f in PlateauState._fields})
+    rng = np.asarray(_at(np_tree, "rng"))
+    if rng.shape != (2,) or rng.dtype != np.uint32:
+        raise ValueError(f"rng: {rng.dtype}{list(rng.shape)} in the JAX state; the threefry "
+                         "key is uint32[2]")
+    with torch.no_grad():  # every check passed: the template takes the parameters
+        for name, p in template.params.named_parameters():
+            p.copy_(params[name])
+    return TrainState(
+        int(np.asarray(_at(np_tree, "step"))),
+        template.params,
+        OptState(AdamState(count, *([moments[m][n].to(device) for n in names]
+                                    for m in ("mu", "nu"))), plateau),
+        torch.from_numpy(rng.astype(np.int64)).to(device),
+    )
+
+
+def train_state_to_jax(state) -> Dict:
+    """The port's ``TrainState`` -> the JAX trainer's state tree with numpy
+    leaves, keyed as ``models/orbax.read_orbax`` keys its checkpoint: the
+    inverse of :func:`train_state_from_jax`, so a test can compare a
+    resumed state with the JAX package's leaf by leaf."""
+    from ddsp_tpu_torch.training.trainer import PlateauState
+
+    to_jax = decoder_to_jax if isinstance(state.params, Decoder) else autoencoder_to_jax
+
+    def layout(values):  # per-parameter tensors in parameters() order
+        module = copy.deepcopy(state.params)
+        with torch.no_grad():
+            for p, v in zip(module.parameters(), values):
+                p.copy_(v)
+        return to_jax(module)
+
+    adam, plateau = state.opt_state
+    return {
+        "params": to_jax(state.params),
+        "opt_state": [[{"count": adam.count.cpu().numpy(), "mu": layout(adam.mu),
+                        "nu": layout(adam.nu)}, None],
+                      {f: getattr(plateau, f).cpu().numpy() for f in PlateauState._fields}],
+        "step": np.asarray(state.step),
+        "rng": state.rng.cpu().numpy().astype(np.uint32),
     }

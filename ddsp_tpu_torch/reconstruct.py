@@ -8,9 +8,10 @@ Flags: any ``Config`` field (``--key=value``), plus
 
   --checkpoint_dir=DIR      the newest step_* checkpoint there: the port
                             trainer's (state.pt) or the JAX package
-                            trainer's Orbax directory (read through the
-                            'tensorstore' package); its config.json, when
-                            present, is the base config
+                            trainer's Orbax directory (read by
+                            models/orbax.py with numpy and the system's
+                            libzstd: no tensorstore); its config.json,
+                            when present, is the base config
   --lightning_ckpt=F.ckpt   a reference-layout Lightning checkpoint instead
   --crepe_checkpoint=F.pth  CREPE weights (reference crepe/pretrained/*.pth).
                             Without it CREPE takes random weights from

@@ -427,7 +427,8 @@ def load_decoder(conf: Config, lightning_ckpt: str = "") -> Decoder:
     """The decoder to serve: from a Lightning ``.ckpt`` when given, else
     from the newest ``step_*`` checkpoint under ``conf.checkpoint_dir``:
     the port trainer's (``state.pt``) or the JAX package trainer's (Orbax,
-    read through ``tensorstore``, ``models/convert.decoder_from_orbax``)."""
+    read by ``models/orbax.py`` with numpy and the system's libzstd,
+    ``models/convert.decoder_from_orbax``)."""
     from ddsp_tpu_torch.models.convert import load_lightning_decoder
     from ddsp_tpu_torch.training.trainer import latest_checkpoint, load_checkpoint_decoder
 

@@ -6,6 +6,9 @@ decoder training, with every Config field settable as ``--key=value``;
 then, with ``--finetune_crepe=N`` (and ``--pitch_decode=weighted``), N
 analysis-by-synthesis steps that finetune CREPE with the decoder, logged to
 ``finetune_metrics.jsonl`` and checkpointed under ``checkpoint_dir/finetune``.
+With ``--resume=1`` (the default) it carries on from the newest ``step_*``
+under ``--checkpoint_dir``: the port's own, or the JAX trainer's Orbax
+directory with its whole state (``trainer.restore_checkpoint``).
 Runs on CUDA unless ``--device=cpu``.
 """
 

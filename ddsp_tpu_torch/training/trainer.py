@@ -28,9 +28,10 @@ In the port:
   its metrics once;
 * checkpoints are ``step_%08d/state.pt`` directories written by
   ``torch.save`` into a temporary directory and renamed into place on one
-  background thread.  The decoder of a JAX-package Orbax ``step_*``
-  directory is read too (``load_checkpoint_decoder``); its optimizer state
-  is not, so training does not resume from one.
+  background thread.  A JAX-package Orbax ``step_*`` directory is read
+  too, without tensorstore (``models/orbax.py``): its decoder
+  (``load_checkpoint_decoder``) or its whole state (``restore_checkpoint``),
+  so training resumes from it where the JAX trainer stopped.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -552,18 +553,26 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     return os.path.join(ckpt_dir, max(steps, key=lambda d: int(d.split("_")[1])))
 
 
+def _jax_checkpoint(path: str) -> bool:
+    """Whether ``path`` is the JAX package trainer's Orbax directory (and
+    not the port's own, which holds ``state.pt``)."""
+    from ddsp_tpu_torch.models.orbax import is_orbax_checkpoint
+
+    return not os.path.exists(os.path.join(path, "state.pt")) and is_orbax_checkpoint(path)
+
+
 def load_checkpoint_payload(path: str) -> Dict[str, Any]:
-    """The saved state of a port checkpoint directory, as CPU tensors."""
-    from ddsp_tpu_torch.models.convert import is_orbax_checkpoint
+    """The saved state of a ``step_*`` directory on the CPU: the port's
+    ``state.pt`` as tensors, or the JAX package trainer's Orbax directory
+    as its numpy tree in the JAX layout (``models/orbax.read_orbax``:
+    ``{'params', 'opt_state', 'step', 'rng'}``)."""
+    from ddsp_tpu_torch.models.orbax import read_orbax
 
     wait_for_checkpoints()  # same-process restore after an async save
+    if _jax_checkpoint(path):
+        return read_orbax(path)
     state_file = os.path.join(path, "state.pt")
     if not os.path.exists(state_file):
-        if is_orbax_checkpoint(path):
-            raise FileNotFoundError(
-                f"{path} is an Orbax checkpoint of the JAX package (ddsp_tpu): the "
-                "port reads its decoder parameters (load_checkpoint_decoder), not "
-                "its optimizer state, so training cannot resume from it")
         raise FileNotFoundError(
             f"{path} holds no state.pt and no Orbax _METADATA / manifest.ocdbt: not "
             "a checkpoint of ddsp_tpu_torch or of the JAX package")
@@ -572,12 +581,13 @@ def load_checkpoint_payload(path: str) -> Dict[str, Any]:
 
 def load_checkpoint_decoder(path: str, conf: Config) -> Decoder:
     """The decoder of a ``step_*`` checkpoint directory: the port's own
-    (``state.pt``) or the JAX package's Orbax directory (through
-    ``tensorstore``, ``models/convert.decoder_from_orbax``).  A finetune
-    checkpoint gives its decoder.  Anything else raises."""
-    from ddsp_tpu_torch.models.convert import decoder_from_orbax, is_orbax_checkpoint
+    (``state.pt``) or the JAX package's Orbax directory
+    (``models/convert.decoder_from_orbax``, which reads the parameters
+    alone).  A finetune checkpoint gives its decoder.  Anything else
+    raises."""
+    from ddsp_tpu_torch.models.convert import decoder_from_orbax
 
-    if not os.path.exists(os.path.join(path, "state.pt")) and is_orbax_checkpoint(path):
+    if _jax_checkpoint(path):
         return decoder_from_orbax(path, conf)
     params = load_checkpoint_payload(path)["params"]
     if any(k.startswith("decoder.") for k in params):
@@ -589,9 +599,17 @@ def load_checkpoint_decoder(path: str, conf: Config) -> Decoder:
 
 def restore_checkpoint(path: str, template: TrainState) -> TrainState:
     """Load a checkpoint into ``template``'s parameters (in place) and
-    rebuild the optimizer state on its device.  A finetune checkpoint
-    needs a finetune template (:func:`init_finetune_state`)."""
+    rebuild the optimizer state on its device: the port's own, or the JAX
+    package trainer's Orbax directory, whose whole state (parameters,
+    optax's Adam moments and count, the plateau state, step and threefry
+    key) carries over through ``models/convert.train_state_from_jax``.  A
+    finetune checkpoint needs a finetune template
+    (:func:`init_finetune_state`)."""
+    from ddsp_tpu_torch.models.convert import train_state_from_jax
+
     payload = load_checkpoint_payload(path)
+    if _jax_checkpoint(path):
+        return train_state_from_jax(payload, template)
     device = template.rng.device
     template.params.load_state_dict(payload["params"])
     adam, plateau = payload["opt_state"]["adam"], payload["opt_state"]["plateau"]

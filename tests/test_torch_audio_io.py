@@ -5,6 +5,7 @@ and ogg fixtures decoded bit-equal to ``ddsp_tpu.data.audio_io.read_audio``
 (skipped where pygame or the fixtures are absent), and the error when no
 decoder backend is installed."""
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import builtins
 import importlib.util
 import os

@@ -4,6 +4,7 @@ Tolerance rtol 1e-4 (atol 1e-6): float32 matmuls and LayerNorm reductions
 summed in another order, compounded over three GRU steps.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import numpy as np
 import pytest
 

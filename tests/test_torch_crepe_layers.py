@@ -4,6 +4,7 @@ and windows, on the CPU.  The JAX package's ``layout`` names its TPU's
 channels-last form; both of its layouts are held to the port's (N, C, H)
 stack."""
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import jax
 import numpy as np
 import pytest

@@ -22,6 +22,7 @@ jax is imported inside the tests that compare with it, so the test marked
 ``python -m pytest --noconftest -m cuda tests/test_torch_ct_conv.py``.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import importlib.util
 import os
 

@@ -26,6 +26,7 @@
 runs the tests marked ``cuda`` on a GPU machine without jax.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import numpy as np
 import pytest
 import torch

@@ -5,6 +5,7 @@ Tolerances, as the feature tests of the serving slice set them
 (tests/test_torch_features.py): CREPE pitch bins equal, since a bin is
 what the controller sees; loudness and CREPE probabilities at atol 1e-5
 (float32 convolutions and FFTs summed in another order).  Examples loaded
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 from 16-bit WAV files at the configured rate are bit-equal: both packages
 decode, mono-mix by the channel mean and cut windows with the same
 arithmetic.

@@ -7,6 +7,7 @@ through both.  jax and the JAX package are imported inside the tests, so a
 machine without jax can collect this file; the ``cuda`` tests hold the card
 against the port on the CPU."""
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import importlib
 import sys
 

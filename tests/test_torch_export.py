@@ -6,6 +6,7 @@ strict=True reference loads; these tests pin that claim (ADVICE round 1:
 the export path shipped with zero coverage).
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import types
 import warnings
 

@@ -7,6 +7,7 @@ The port runs CREPE's torch-shaped NCH stack, the JAX package its default
 channels-last 'nlc' stack: the same math.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import numpy as np
 import pytest
 

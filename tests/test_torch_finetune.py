@@ -53,6 +53,7 @@ are equal.  Seeds 3 (used), 9 and 14 keep them equal through three steps
 in both runs; 4, 6, 8, 10 and 11 do not.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import numpy as np
 import pytest
 import torch

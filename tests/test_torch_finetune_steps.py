@@ -5,6 +5,7 @@ tests/test_torch_finetune.py's docstring (this file is separate only so
 that the test runner can run it beside that one).
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import copy
 
 import numpy as np

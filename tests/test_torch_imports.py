@@ -1,12 +1,14 @@
 """Import hygiene of the port, and its refusal to fall back to the CPU.
 
 The port must run on a machine with no jax: neither importing any of its
-modules nor ``chip_smoke.py`` may load jax or the JAX package.  Its
+modules nor ``chip_smoke.py`` may load jax or the JAX package, nor orbax,
+tensorstore or zstandard, which that machine lacks as well.  Its
 serving and training entry points default to CUDA and must raise, not
 quietly run on the CPU, when there is no GPU and the caller did not ask
 for the CPU.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import ast
 import os
 import subprocess
@@ -87,6 +89,8 @@ MEASUREMENT_MODULES = (
     "ddsp_tpu_torch.utils.profiling", "ddsp_tpu_torch.utils.roofline",
     "ddsp_tpu_torch.utils.multistream_frontier", "ddsp_tpu_torch.utils.server_drive",
 )
+# the Orbax checkpoint reader's modules
+CHECKPOINT_MODULES = ("ddsp_tpu_torch.models.orbax", "ddsp_tpu_torch.native.zstd")
 # the offline reconstruction slice's modules
 RECONSTRUCT_MODULES = (
     "ddsp_tpu_torch.reconstruct", "ddsp_tpu_torch.models.lightning_export",
@@ -94,10 +98,14 @@ RECONSTRUCT_MODULES = (
 )
 
 
+# what the card's machine lacks: the port reads Orbax checkpoints without them
+CHECKPOINT_PACKAGES = ("orbax", "tensorstore", "zstandard")
+
+
 def _banned(name: str) -> bool:
     return name in ("jax", "optax") or name.startswith(("jax.", "jaxlib", "optax.")) or (
         name == "ddsp_tpu" or name.startswith("ddsp_tpu.")
-    )
+    ) or name.split(".")[0] in CHECKPOINT_PACKAGES
 
 
 def test_every_module_imports_without_jax():
@@ -112,7 +120,8 @@ def test_every_module_imports_without_jax():
         print(",".join(names))
         print(",".join(sorted(m for m in sys.modules
               if m in ("jax", "optax") or m.startswith(("jax.", "jaxlib", "optax."))
-              or m == "ddsp_tpu" or m.startswith("ddsp_tpu."))))
+              or m == "ddsp_tpu" or m.startswith("ddsp_tpu.")
+              or m.split(".")[0] in ("orbax", "tensorstore", "zstandard"))))
         """
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -132,6 +141,7 @@ def test_every_module_imports_without_jax():
     assert set(PARALLEL_MODULES) <= set(names)
     assert set(EXPERIMENT_MODULES) <= set(names)
     assert set(MEASUREMENT_MODULES) <= set(names)
+    assert set(CHECKPOINT_MODULES) <= set(names)
     assert loaded == "", f"port imports pulled in {loaded}"
 
 

@@ -5,6 +5,7 @@ kernel whose counter is missing there would escape every "no other hand
 kernel launched" check.  CPU only: no kernel is launched here.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import importlib
 import pkgutil
 

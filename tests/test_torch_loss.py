@@ -14,6 +14,7 @@ Tolerances, each with its reason:
   reverb backward pinned to float32 (``reverb_grad_matmul_dtype``).
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import numpy as np
 import pytest
 import torch

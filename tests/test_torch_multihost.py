@@ -33,6 +33,7 @@ every subprocess has a hard timeout, so no test can hang the suite.
   atol=2e-5) (the JAX suite's SP criterion).
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import os
 import subprocess
 import sys

@@ -5,6 +5,7 @@ the parallel WAV corpus decoder bit-equal to ``ddsp_tpu.native``'s and to
 ``read_wav``.  A build that cannot run raises; it never falls back to the
 Python ring or decoder."""
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import struct
 import threading
 

@@ -5,6 +5,7 @@ stream reproduce a ddsp_tpu stream (and an offline render) exactly, so
 every comparison here is exact equality, not a tolerance.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import numpy as np
 import pytest
 

@@ -25,6 +25,7 @@ jax is imported inside the tests that compare with it, so the test marked
 ``python -m pytest --noconftest -m cuda tests/test_torch_osc_impl.py``.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import numpy as np
 import pytest
 import torch

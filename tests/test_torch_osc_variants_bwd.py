@@ -22,6 +22,7 @@ resets both.  jax is imported inside the tests that compare with it:
 ``python -m pytest --noconftest -m cuda tests/test_torch_osc_variants_bwd.py``.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import numpy as np
 import pytest
 import torch

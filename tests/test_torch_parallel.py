@@ -39,6 +39,7 @@ Measured by tests/parallel_numerics_report.py --renders.
   metrics equal and its state checksum bit-equal.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import numpy as np
 import pytest
 

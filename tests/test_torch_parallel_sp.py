@@ -49,6 +49,7 @@ allclose(rtol=2e-3, atol=2e-5)):
 * every rank's metrics equal and its state checksum bit-equal.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import numpy as np
 import pytest
 

@@ -26,6 +26,7 @@ Floors, each no lower than the JAX suite's, with the values measured
   tests/test_torch_parallel.py).
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import pytest
 
 import torch_parallel_refs as refs

@@ -45,6 +45,7 @@ than tests/test_torch_parallel_sp.py's:
   given to the TP step.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import numpy as np
 import pytest
 

@@ -48,6 +48,7 @@ Tolerances (CPU; each set a few times the gap measured on its inputs):
   dB, under the floor, so the test tells the two apart and requires it.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import copy
 
 import numpy as np

@@ -16,6 +16,7 @@ GPU machine as ``python -m pytest --noconftest -m cuda
 tests/test_torch_profiling.py``.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import glob
 import os
 import time

@@ -35,6 +35,7 @@ kernel floor of ``chip_smoke.py``.  jax is imported inside the tests, so
 the card machine (no jax) can collect this file.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import importlib
 import sys
 import time

@@ -5,6 +5,7 @@ matmuls there) round in a different order; the partition sums add 3
 products per bin.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import numpy as np
 
 import jax

@@ -25,6 +25,7 @@ reason:
   the IR's noise, measured 2.7e-3, grad_norm 2.6e-4).
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import copy
 
 import numpy as np

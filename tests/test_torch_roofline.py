@@ -12,6 +12,7 @@
 * No roofline function takes the name of an implementation.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import inspect
 
 import pytest

@@ -11,6 +11,7 @@ Floors:
   a batch of one.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import threading
 
 import numpy as np

@@ -16,6 +16,7 @@
 This file imports no jax.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import ast
 import json
 import os

@@ -7,6 +7,7 @@ sizes, and each stage's probe: all within the JAX contract's 1e-5 here
 run on as many rows as the server has, value for value.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import json
 
 import numpy as np

@@ -20,6 +20,7 @@ jax is imported inside the tests that compare with it, so the test marked
 ``python -m pytest --noconftest -m cuda tests/test_torch_stft.py``.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import numpy as np
 import pytest
 import torch

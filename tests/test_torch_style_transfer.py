@@ -6,6 +6,7 @@ line-search step counts; each step again from optax's own state; the
 audio end to end and the CLI.  jax, optax and the JAX package are imported
 inside the tests; the ``cuda`` test holds the card against the CPU."""
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import numpy as np
 import pytest
 import torch

@@ -22,6 +22,7 @@ Tolerances, each with its reason:
   step for step.
 """
 
+import torch_one_thread  # noqa: F401  (one torch thread a test worker)
 import json
 import os
 
