@@ -15,13 +15,13 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from ddsp_tpu_torch.config import Config
 from ddsp_tpu_torch.models.controller import decoder_apply, decoder_init
 from ddsp_tpu_torch.models.crepe import crepe_init, load_torch_checkpoint
 from ddsp_tpu_torch.models.encoder import encoder_apply
 from ddsp_tpu_torch.ops.fir import split
+from ddsp_tpu_torch.utils.profiling import named_scope
 
 
 def feature_pad(audio: torch.Tensor, conf: Config) -> torch.Tensor:
@@ -62,9 +62,9 @@ def autoencoder_apply(
     noise_key: torch.Tensor,
     freeze_crepe: bool = True,
 ) -> torch.Tensor:
-    """Reconstruct audio: encode (in the ``encoder`` profiler range) ->
-    decode (autoencoder.py:17-22).  ``freeze_crepe=False`` lets the
-    gradient flow into CREPE (analysis-by-synthesis finetuning)."""
-    with record_function("encoder"):
+    """Reconstruct audio: encode (in the ``encoder`` span) -> decode
+    (autoencoder.py:17-22).  ``freeze_crepe=False`` lets the gradient flow
+    into CREPE (analysis-by-synthesis finetuning)."""
+    with named_scope("encoder"):
         features = encode(params, audio, conf, freeze_crepe)
     return decoder_apply(params["decoder"], features, conf, noise_key)

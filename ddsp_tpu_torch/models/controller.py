@@ -5,9 +5,10 @@ model/autoencoder/decoder.py:41-147): two input MLPs -> GRU -> MLP -> three
 dense heads through ``modified_sigmoid``.  The streaming path returns the
 advanced GRU state (the reference returns the stale one).
 ``decoder_apply`` wires the controls into oscillator + noise + reverb,
-each stage inside a ``torch.profiler.record_function`` range (controller,
+each stage inside a span (``utils/profiling.named_scope``: controller,
 oscillator_bank, filtered_noise, reverb), the counterparts of the JAX
-package's ``named_scope``s.
+package's ``named_scope``s; in a profiler window each stage's outputs also
+name its backward (``backward.<stage>``, ``profiling.backward_span``).
 
 ``Config.compute_dtype`` other than 'float32' runs the three MLPs with
 the JAX package's roundings to that dtype (``models/nn.MLP``), in
@@ -22,7 +23,6 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ddsp_tpu_torch.config import Config
 from ddsp_tpu_torch.models.nn import GRU, MLP, compute_dtype_of
@@ -32,6 +32,7 @@ from ddsp_tpu_torch.models.synths import (
     oscillator_apply,
     reverb_apply,
 )
+from ddsp_tpu_torch.utils.profiling import backward_span, named_scope
 
 
 def modified_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -135,15 +136,20 @@ def decoder_apply(
     in the whole batch, whose row keys the noise takes (a data-parallel
     rank's rows, ``parallel/train.py``).  Returns (B, T*hop) audio.
     """
-    with record_function("controller"):
+    with named_scope("controller"):
         controls, _ = controller_apply(params.controller, batch,
                                        compute_dtype=compute_dtype_of(conf.compute_dtype))
-    with record_function("oscillator_bank"):
+        backward_span("controller", controls["c"], controls["a"], controls["H"])
+    with named_scope("oscillator_bank"):
         harm, _ = oscillator_apply(controls, conf, frame_chunk=frame_chunk)
-    with record_function("filtered_noise"):
+        backward_span("oscillator_bank", harm)
+    with named_scope("filtered_noise"):
         noise = noise_apply(controls, conf, noise_key, noise_row_offset)
-    with record_function("reverb"):
-        return reverb_apply(params.reverb, harm + noise, conf)
+        backward_span("filtered_noise", noise)
+    with named_scope("reverb"):
+        audio = reverb_apply(params.reverb, harm + noise, conf)
+        backward_span("reverb", audio)
+        return audio
 
 
 def decoder_synth_only(

@@ -10,8 +10,12 @@ streams share the batch rows ("slots") of one step:
   the noise folds (slot, absolute frame);
 * one step runs every slot through features (CREPE + loudness), the
   controller, the oscillator kernel, noise and reverb; each stage is a
-  ``record_function`` range, so a ``torch.profiler`` trace attributes
-  device time to it (utils/profile_serving.py).
+  span (``utils/profiling.named_scope``), as are the features' parts
+  (``features.loudness``, ``features.resample``, ``features.crepe``), the
+  state's row selects (``state``) and ``MultiStreamServer.process``'s
+  copies, issue and wait (``process``, ``copy_in``, ``hop``,
+  ``copy_out``), so a ``torch.profiler`` window attributes host and device
+  time to each (``python -m ddsp_tpu_torch.utils.profile_serving``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no GPU and no explicit ``"cpu"`` they raise.
@@ -24,7 +28,6 @@ from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ddsp_tpu_torch.config import Config
 from ddsp_tpu_torch.device import resolve_device
@@ -45,6 +48,7 @@ from ddsp_tpu_torch.runtime.streaming import (
     feature_stream_init,
     make_feature_stream_step,
 )
+from ddsp_tpu_torch.utils.profiling import named_scope
 
 
 class MultiStreamState(NamedTuple):
@@ -140,7 +144,7 @@ def _render_slots(params: Decoder, conf: Config, ir_spec, row_keys, prev, cur,
     def cat(k):
         return torch.cat([prev[k], cur[k], nxt[k]], dim=1)
 
-    with record_function("oscillator"):
+    with named_scope("oscillator"):
         harm, new_phase = render_hop_rows(
             cat("f0"), cat("c"), cat("a"),
             sample_rate=conf.sample_rate,
@@ -148,11 +152,11 @@ def _render_slots(params: Decoder, conf: Config, ir_spec, row_keys, prev, cur,
             initial_phase=phase,
             fill=osc_fill(conf.osc_impl, phase.device),
         )
-    with record_function("noise"):
+    with named_scope("noise"):
         offsets = torch.clamp(n_seen - 1, min=0)
         noise_frames = _slot_noise(row_keys, offsets, conf.hop_length, harm.dtype)
         noise = convolve_designed_fir(pending_h, noise_frames)
-    with record_function("reverb"):
+    with named_scope("reverb"):
         wet, hist = reverb_live(
             params.reverb, reverb_hist, harm + noise, conf, ir_spec=ir_spec
         )
@@ -188,35 +192,37 @@ def make_multistream_step(
 
     @torch.no_grad()
     def step(state: MultiStreamState, blocks: torch.Tensor):
-        with record_function("features"):
+        with named_scope("features"):
             frame, feat = feat_step(state.feat, blocks)
-        with record_function("controller"):
+        with named_scope("controller"):
             controls, hidden = controller_apply(params.controller, frame, state.hidden)
         new_ctrl = {k: controls[k] for k in ("f0", "c", "a")}
 
-        first = (state.n_seen == 0)[:, None, None]  # slot pipelines filling
-        prev_r = {k: torch.where(first, new_ctrl[k], v) for k, v in state.prev.items()}
-        cur_r = {k: torch.where(first, new_ctrl[k], v) for k, v in state.cur.items()}
+        # a slot whose pipeline is filling (no frame seen) renders its
+        # initial controls, and every row of that render is discarded below
         wet, phase, hist = _render_slots(
-            params, conf, ir_spec, slot_keys(blocks.shape[0]), prev_r, cur_r,
+            params, conf, ir_spec, slot_keys(blocks.shape[0]), state.prev, state.cur,
             new_ctrl, state.phase, state.pending["H"], state.n_seen,
             state.reverb_hist,
         )
-        have_output = state.n_seen >= 1  # (N,)
-        new_state = MultiStreamState(
-            feat=feat,
-            hidden=hidden,
-            phase=torch.where(have_output, phase, state.phase),
-            prev=cur_r,
-            cur=new_ctrl,
-            pending={"H": controls["H"]},
-            n_seen=state.n_seen + 1,
-            reverb_hist=ReverbLiveState(*(
-                torch.where(have_output.reshape((-1,) + (1,) * (h.dim() - 1)), h, o)
-                for h, o in zip(hist, state.reverb_hist)
-            )),
-        )
-        return torch.where(have_output[:, None], wet, 0.0), new_state
+        with named_scope("state", device=True):
+            # while filling, the current controls snap to the incoming frame
+            first = (state.n_seen == 0)[:, None, None]
+            have_output = state.n_seen >= 1  # (N,)
+            new_state = MultiStreamState(
+                feat=feat,
+                hidden=hidden,
+                phase=torch.where(have_output, phase, state.phase),
+                prev={k: torch.where(first, new_ctrl[k], v) for k, v in state.cur.items()},
+                cur=new_ctrl,
+                pending={"H": controls["H"]},
+                n_seen=state.n_seen + 1,
+                reverb_hist=ReverbLiveState(*(
+                    torch.where(have_output.reshape((-1,) + (1,) * (h.dim() - 1)), h, o)
+                    for h, o in zip(hist, state.reverb_hist)
+                )),
+            )
+            return torch.where(have_output[:, None], wet, 0.0), new_state
 
     if not masked:
         return step
@@ -305,10 +311,14 @@ class MultiStreamServer:
             raise ValueError(
                 f"blocks must be {(self.n_streams, self.hop)}, got {blocks.shape}"
             )
-        x = torch.from_numpy(np.asarray(blocks, np.float32)).to(self.device)
-        out, self.state = self._step(self.state, x)
-        self.blocks += 1
-        return out.cpu().numpy()
+        with named_scope("process"):
+            with named_scope("copy_in"):
+                x = torch.from_numpy(np.asarray(blocks, np.float32)).to(self.device)
+            with named_scope("hop"):
+                out, self.state = self._step(self.state, x)
+            self.blocks += 1
+            with named_scope("copy_out"):  # waits for the hop's device work
+                return out.cpu().numpy()
 
     def flush(self) -> np.ndarray:
         out, self.state = self._flush(self.state)

@@ -43,6 +43,7 @@ from ddsp_tpu_torch.ops.fir import PRNGKey, filtered_noise
 from ddsp_tpu_torch.ops.oscillator import render_hop_rows
 from ddsp_tpu_torch.ops.resample import resample
 from ddsp_tpu_torch.ops.spectral import a_weighted_loudness
+from ddsp_tpu_torch.utils.profiling import named_scope
 
 
 class SynthStreamState(NamedTuple):
@@ -173,7 +174,9 @@ def make_feature_stream_step(crepe: Crepe, conf: Config):
 
     The newest frame's loudness (rectangular STFT frame over the last
     n_fft samples) and CREPE f0 (last ``crepe_window`` samples after
-    resampling): exactly one frame per hop.
+    resampling): exactly one frame per hop.  Its parts are the spans
+    ``features.loudness`` (with the buffer's roll), ``features.resample``
+    and ``features.crepe`` (with the window's normalisation and the argmax).
     """
     crepe_win_orig = int(
         np.ceil(conf.crepe_window * conf.sample_rate / conf.crepe_sample_rate)
@@ -181,17 +184,20 @@ def make_feature_stream_step(crepe: Crepe, conf: Config):
 
     @torch.no_grad()
     def step(state: FeatureStreamState, audio_hop: torch.Tensor):
-        buf = torch.cat([state.buffer[:, audio_hop.shape[-1]:], audio_hop], dim=-1)
-        loud = a_weighted_loudness(
-            buf[:, -conf.n_fft:], conf.n_fft, conf.hop_length, conf.sample_rate
-        )  # (B, 1, 1): exactly one frame fits the window
-        rs = resample(buf[:, -crepe_win_orig:], conf.sample_rate,
-                      conf.crepe_sample_rate)
-        window = rs[:, -conf.crepe_window:]
-        mean = window.mean(dim=-1, keepdim=True)
-        std = window.std(dim=-1, keepdim=True) + 1e-8  # ddof=1
-        probs = crepe_forward(crepe, (window - mean) / std)
-        freq, _, normalized_cents = pitch_argmax(probs[:, None, :])
+        with named_scope("features.loudness", device=True):
+            buf = torch.cat([state.buffer[:, audio_hop.shape[-1]:], audio_hop], dim=-1)
+            loud = a_weighted_loudness(
+                buf[:, -conf.n_fft:], conf.n_fft, conf.hop_length, conf.sample_rate
+            )  # (B, 1, 1): exactly one frame fits the window
+        with named_scope("features.resample", device=True):
+            rs = resample(buf[:, -crepe_win_orig:], conf.sample_rate,
+                          conf.crepe_sample_rate)
+        with named_scope("features.crepe", device=True):
+            window = rs[:, -conf.crepe_window:]
+            mean = window.mean(dim=-1, keepdim=True)
+            std = window.std(dim=-1, keepdim=True) + 1e-8  # ddof=1
+            probs = crepe_forward(crepe, (window - mean) / std)
+            freq, _, normalized_cents = pitch_argmax(probs[:, None, :])
         frame = {"f0": freq, "normalized_cents": normalized_cents, "loudness": loud}
         return frame, FeatureStreamState(buffer=buf)
 

@@ -50,7 +50,6 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ddsp_tpu_torch.config import Config
 from ddsp_tpu_torch.device import resolve_device
@@ -64,6 +63,7 @@ from ddsp_tpu_torch.models.autoencoder import autoencoder_apply, autoencoder_ini
 from ddsp_tpu_torch.models.controller import Decoder, decoder_apply, decoder_init
 from ddsp_tpu_torch.models.crepe import make_statistics_trainable
 from ddsp_tpu_torch.ops.fir import PRNGKey, fold_in, split
+from ddsp_tpu_torch.utils.profiling import backward_span, named_scope
 
 # keys the train step consumes; the rest of the feature dict
 # (probabilities, harmonicity) stays on the host
@@ -240,7 +240,7 @@ def loss_fn(
     """
     pred = decode(params, batch, conf, noise_key)
     dtype = loss_matmul_dtype(conf)
-    with record_function("loss"):
+    with named_scope("loss"):
         if target_mag_key(conf.mss_ffts[0]) in batch:
             scales = mss_loss_per_scale_cached(
                 pred, batch, conf.mss_ffts, conf.mss_alpha, conf.mss_overlap,
@@ -252,6 +252,7 @@ def loss_fn(
                 matmul_dtype=dtype,
             )
         loss = sum(scales.values())
+        backward_span("loss", loss)
     return loss, scales
 
 
@@ -271,21 +272,22 @@ def make_train_step(conf: Config, loss=None, reduce=None):
     loss = loss_fn if loss is None else loss
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        rng, noise_key = split(state.rng)
-        params = list(state.params.parameters())
-        loss_val, scales = loss(state.params, batch, conf, noise_key)
-        with record_function("backward"):
-            grads = torch.autograd.grad(loss_val, params, allow_unused=True)
-            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
-        if reduce is not None:
-            with record_function("all_reduce"):
-                loss_val, scales, grads = reduce(loss_val.detach(), scales, grads)
-        with record_function("optimizer"):
-            opt_state = opt.step(params, grads, state.opt_state, loss_val.detach())
-            metrics = {k: v.detach() for k, v in scales.items()}
-            metrics["loss"] = loss_val.detach()
-            metrics["grad_norm"] = torch.sqrt(sum((g * g).sum() for g in grads))
-        return TrainState(state.step + 1, state.params, opt_state, rng), metrics
+        with named_scope("train_step"):
+            rng, noise_key = split(state.rng)
+            params = list(state.params.parameters())
+            loss_val, scales = loss(state.params, batch, conf, noise_key)
+            with named_scope("backward"):
+                grads = torch.autograd.grad(loss_val, params, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+            if reduce is not None:
+                with named_scope("all_reduce"):
+                    loss_val, scales, grads = reduce(loss_val.detach(), scales, grads)
+            with named_scope("optimizer"):
+                opt_state = opt.step(params, grads, state.opt_state, loss_val.detach())
+                metrics = {k: v.detach() for k, v in scales.items()}
+                metrics["loss"] = loss_val.detach()
+                metrics["grad_norm"] = torch.sqrt(sum((g * g).sum() for g in grads))
+            return TrainState(state.step + 1, state.params, opt_state, rng), metrics
 
     return train_step
 
@@ -300,12 +302,13 @@ def loss_fn_e2e(
     -> decoder -> MSS vs the same audio.  ``params`` is ``{'decoder',
     'crepe'}``; ``batch`` needs only 'audio'."""
     pred = autoencoder_apply(params, batch["audio"], conf, noise_key, freeze_crepe=False)
-    with record_function("loss"):
+    with named_scope("loss"):
         scales = mss_loss_per_scale(
             pred, batch["audio"], conf.mss_ffts, conf.mss_alpha, conf.mss_overlap,
             matmul_dtype=loss_matmul_dtype(conf),
         )
         loss = sum(scales.values())
+        backward_span("loss", loss)
     return loss, scales
 
 

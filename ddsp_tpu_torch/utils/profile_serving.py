@@ -8,10 +8,18 @@ random weights (as ``chip_smoke.py`` drives it):
 
 * ``wall_ms``: median host time of ``MultiStreamServer.process`` per hop,
   blocks in and audio out (what a serving host sees);
-* a ``torch.profiler`` window over the same hops, from which each labelled
-  stage of the step (features, controller, oscillator, noise, reverb;
-  ``runtime/multistream.py``) gets its device time and kernel launches per
-  hop, and the card its busy share of the window's wall time.
+* a ``torch.profiler`` window over the same hops, from which the card's
+  busy share of the window's wall time and its operations per hop are
+  read (every kernel, copy and fill the card ran, the slot kernel K5
+  among them), and for each span of the hop (``utils/profiling.span_totals``:
+  ``process`` and its ``copy_in``, ``hop`` and ``copy_out``; the stages
+  ``features``, ``controller``, ``oscillator``, ``noise``, ``reverb``; the
+  features' parts and ``state``; ``runtime/multistream.py``) its host ms
+  per hop and its device ms per hop: the durations of the operations
+  whose launch began inside the span and inside no span nested in it
+  (matched by correlation id, so the ``ctypes`` kernels count), and, for
+  the spans that time the card, their CUDA event pair's elapsed time on
+  the stream, the card's idle inside them included.
 
 Prints one JSON line per slot count and, given ``--out``, writes them all
 to that file.
@@ -20,6 +28,7 @@ Needs a CUDA device.
 
 from __future__ import annotations
 
+import bisect
 import json
 import os
 import statistics
@@ -29,9 +38,29 @@ import time
 import numpy as np
 import torch
 
-from ddsp_tpu_torch.utils.profiling import card_name, kernels_under
+from ddsp_tpu_torch.utils import profiling
 
-STAGES = ("features", "controller", "oscillator", "noise", "reverb")
+
+def _device_ns_by_span(prof, names) -> dict:
+    """{span: ns of the card's operations launched inside it and inside no
+    span nested in it}; 'other' takes the operations launched outside
+    every span."""
+    ranges = sorted((a, b, n) for n, a, b in profiling.host_ranges(prof, names))
+    starts = [r[0] for r in ranges]
+    launches = profiling.launch_starts_ns(prof)
+
+    def holder(t):
+        i = bisect.bisect_right(starts, t) - 1
+        while i >= 0 and ranges[i][1] < t:  # the innermost range that holds t
+            i -= 1
+        return ranges[i][2] if i >= 0 else "other"
+
+    out = {}
+    for e in profiling.device_events(prof):
+        t = launches.get(e.correlation_id())
+        name = "other" if t is None else holder(t)
+        out[name] = out.get(name, 0) + e.duration_ns()
+    return out
 
 
 def profile(n_streams: int, hops: int, seed: int = 0) -> dict:
@@ -57,28 +86,29 @@ def profile(n_streams: int, hops: int, seed: int = 0) -> dict:
         wall.append(1e3 * (time.perf_counter() - t0))
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    profiling.reset_spans()
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for b in blocks:
             server.process(b)
         window_ms = 1e3 * (time.perf_counter() - t0)
 
-    events = prof.events()
-    all_kernels = [k for e in events for k in e.kernels]
-    busy_ms = 1e-3 * sum(k.duration for k in all_kernels)
-    stages = {}
-    for name in STAGES:
-        ranges = [e for e in events if e.name == name]
-        kernels = [k for e in ranges for k in kernels_under(e)]
-        stages[name] = {
-            "device_ms_per_hop": 1e-3 * sum(k.duration for k in kernels) / hops,
-            "kernels_per_hop": len(kernels) / hops,
-            "host_ms_per_hop": 1e-3 * sum(e.time_range.elapsed_us() for e in ranges) / hops,
-        }
-    by_kernel = {}
-    for k in all_kernels:
-        by_kernel[k.name] = by_kernel.get(k.name, 0.0) + k.duration
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    ops = profiling.device_events(prof)
+    busy_ms = 1e-6 * sum(e.duration_ns() for e in ops)
+    by_name = {}
+    for e in ops:
+        by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    totals = profiling.span_totals()
+    device_ns = _device_ns_by_span(prof, totals)
+    spans = {name: {"device_ms_per_hop": 1e-6 * device_ns.get(name, 0) / hops,
+                    "event_ms_per_hop": None if t["device_s"] is None
+                    else 1e3 * t["device_s"] / hops,
+                    "host_ms_per_hop": 1e3 * t["host_s"] / hops,
+                    "count_per_hop": t["count"] / hops}
+             for name, t in totals.items()}
+    spans["other"] = {"device_ms_per_hop": 1e-6 * device_ns.get("other", 0) / hops}
+    profiling.reset_spans()
     return {
         "n_streams": n_streams,
         "hops": hops,
@@ -86,9 +116,9 @@ def profile(n_streams: int, hops: int, seed: int = 0) -> dict:
         "profiled_wall_ms_per_hop": window_ms / hops,
         "device_busy_ms_per_hop": busy_ms / hops,
         "device_idle_share": 1.0 - busy_ms / window_ms,
-        "kernels_per_hop": len(all_kernels) / hops,
-        "stages": stages,
-        "top_kernels_ms_per_hop": {name[:80]: 1e-3 * us / hops for name, us in top},
+        "device_ops_per_hop": len(ops) / hops,
+        "spans": spans,
+        "top_ops_ms_per_hop": {name[:80]: 1e-6 * ns / hops for name, ns in top},
     }
 
 
@@ -100,7 +130,7 @@ def main(argv=None) -> int:
     slots = [int(x) for x in args.get("n_streams", "256,1024,2048").split(",")]
     hops = int(args.get("hops", "30"))
     out = args.get("out")
-    card = card_name()
+    card = profiling.card_name()
     results = []
     for n in slots:
         r = profile(n, hops)

@@ -1,10 +1,14 @@
-"""Tracing and timing on the card: the port's one timer and profiler reader.
+"""Tracing and timing on the card: the port's one span, timer and profiler
+reader.
 
 The counterpart of ``ddsp_tpu/utils/profiling.py``, by what each function
 is for on an NVIDIA GPU:
 
-* ``named_scope``: ``torch.profiler.record_function``, the ranges the
-  controller, the train step and the serving step already open;
+* :class:`named_scope`: the port's span, the only way its code opens a
+  ``record_function`` range; while a profiler window is open it also
+  records its host interval and, if asked, a CUDA event pair (:func:`span_totals`,
+  :func:`span_records`, :func:`reset_spans`), and :func:`backward_span`
+  names the backward of a forward stage;
 * :func:`trace`: a ``torch.profiler`` window over CPU and CUDA activity
   written as a Chrome/Perfetto trace;
 * :func:`microbench`: wall time a call, ended by a device synchronize on
@@ -14,9 +18,8 @@ is for on an NVIDIA GPU:
   replayed from a CUDA graph;
 * :func:`marginal_chain_time`: JAX's chained-marginal timer, the scalar
   fetch (``.item()``) as its barrier;
-* :func:`kernel_durations_ns`, :func:`device_events`, :func:`launch_starts_ns`,
-  :func:`host_ranges` and :func:`kernels_under`: reading a finished profiler
-  window;
+* :func:`kernel_durations_ns`, :func:`device_events`, :func:`launch_starts_ns`
+  and :func:`host_ranges`: reading a finished profiler window;
 * :func:`debug_nans` and :func:`deoptimized`: numeric triage.
 
 Nothing here builds or launches a kernel at import.
@@ -25,16 +28,168 @@ Nothing here builds or launches a kernel at import.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import subprocess
 import time
 import warnings
-from typing import Any, Callable, Dict, Iterable, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatch_mode_stack
 
-named_scope = torch.profiler.record_function  # annotate stages for trace readability
+# ------------------------------------------------------------------ spans
+
+_profiler_enabled = torch._C._autograd._profiler_enabled  # kineto, legacy and emit_nvtx
+
+
+class _SpanLog:
+    """The spans recorded in this process's profiler windows, until
+    :func:`reset_spans`.  It is process-wide, as a profiler window is: a
+    reader that sees only the window (the benchmark's per-layer metrics)
+    reads the program's spans here.
+
+    A span's host stamps are read from the realtime clock (epoch ns), onto
+    which the profiler maps its events' stamps (``start_ns()``)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.records: List[tuple] = []  # (name, start, end, begin event, end event)
+        self.backward = None  # the open backward span
+        self.backward_seen = set()  # the backward spans this backward pass opened
+
+    def open(self, name: str, device: bool) -> tuple:
+        start = time.time_ns()
+        rf = torch.profiler.record_function(name)
+        rf.__enter__()
+        begin = stream = None
+        if device and _on_card() and not torch.cuda.is_current_stream_capturing():
+            stream = torch.cuda.current_stream()
+            begin = torch.cuda.Event(enable_timing=True)
+            begin.record(stream)
+        return name, start, rf, begin, stream
+
+    def close(self, span: tuple) -> None:
+        name, start, rf, begin, stream = span
+        end = None
+        if begin is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(stream)
+        rf.__exit__(None, None, None)
+        self.records.append((name, start, time.time_ns(), begin, end))
+
+    def enter_backward(self, name: str, grad: torch.Tensor) -> None:
+        """A gradient hook (on autograd's thread): the backward has reached
+        an output of the stage ``name`` is named after."""
+        if name in self.backward_seen:
+            return
+        if not self.backward_seen:  # the pass's first: its end closes the last span
+            torch.autograd.Variable._execution_engine.queue_callback(self.end_backward)
+        self.backward_seen.add(name)
+        if self.backward is not None:
+            self.close(self.backward)
+        self.backward = self.open(name, device=True) if _profiler_enabled() else None
+
+    def end_backward(self) -> None:
+        if self.backward is not None:
+            self.close(self.backward)
+        self.backward, self.backward_seen = None, set()
+
+    def read(self) -> List[Tuple[str, int, int, Optional[float]]]:
+        if not self.records:
+            return []
+        if any(r[3] is not None for r in self.records):
+            torch.cuda.synchronize()
+        return [(n, a, b, None if e0 is None else 1e-3 * e0.elapsed_time(e1))
+                for n, a, b, e0, e1 in self.records]
+
+
+_SPANS = _SpanLog()
+
+
+class named_scope:
+    """The port's span: ``with named_scope("reverb"): ...``.
+
+    With no profiler window open it costs one check of
+    ``torch._C._autograd._profiler_enabled()``: it opens no
+    ``record_function`` range and records nothing.  With a window open it
+    opens the ``record_function`` range of its name, which the trace and
+    the readers of launches by range see, and records its host interval
+    (stamped just outside the range).  With ``device=True``, and on the
+    card, it also records a timed CUDA event pair on the current stream
+    (:func:`span_records`): two event records under the profiler cost
+    about three times the range, so only the spans whose device seconds
+    are read take them."""
+
+    __slots__ = ("name", "device", "_span")
+
+    def __init__(self, name: str, device: bool = False):
+        self.name = name
+        self.device = device
+        self._span = None
+
+    def __enter__(self):
+        if _profiler_enabled():
+            self._span = _SPANS.open(self.name, self.device)
+        return self
+
+    def __exit__(self, *exc):
+        if self._span is not None:
+            _SPANS.close(self._span)
+            self._span = None
+        return False
+
+
+def backward_span(stage: str, *tensors: torch.Tensor) -> None:
+    """Name the backward of the forward stage ``stage``, whose outputs are
+    ``tensors``.  While a profiler window is open, each output that
+    requires grad gets a gradient hook: when autograd first reaches one of
+    them, the backward span open until then closes and the span
+    ``backward.<stage>`` opens, its CUDA event on the stream the backward
+    runs on; the last closes as the backward pass ends, just before
+    ``torch.autograd.grad`` returns.  With no window open it registers
+    nothing."""
+    if not _profiler_enabled():
+        return
+    hook = functools.partial(_SPANS.enter_backward, f"backward.{stage}")
+    for t in tensors:
+        if t.requires_grad:
+            t.register_hook(hook)
+
+
+def span_records() -> List[Tuple[str, int, int, Optional[float]]]:
+    """[(name, host start ns, host end ns, device seconds or None)] of every
+    span closed in the process's profiler windows since the last
+    :func:`reset_spans`, in the order they closed.  The host ns are on the
+    clock of the profiler's events (``start_ns()``).  Device seconds,
+    where the span timed the card (``device=True``, and the backward
+    spans), are the elapsed time between its event pair, read after a
+    synchronise: the device's wall time from the end of the work queued
+    before the span to the end of the span's work, idle inside the span
+    included (unlike a trace's sum of kernel durations)."""
+    return _SPANS.read()
+
+
+def span_totals() -> Dict[str, Dict[str, Any]]:
+    """{name: {'count', 'host_s', 'device_s'}} over :func:`span_records`:
+    how many times each span closed, its host seconds and its device
+    seconds (None where it never timed the card).  Nested spans each
+    count their own whole interval."""
+    totals: Dict[str, Dict[str, Any]] = {}
+    for name, a, b, dev in span_records():
+        t = totals.setdefault(name, {"count": 0, "host_s": 0.0, "device_s": None})
+        t["count"] += 1
+        t["host_s"] += 1e-9 * (b - a)
+        if dev is not None:
+            t["device_s"] = (t["device_s"] or 0.0) + dev
+    return totals
+
+
+def reset_spans() -> None:
+    """Forget every span recorded so far."""
+    _SPANS.reset()
 
 
 @contextlib.contextmanager
@@ -229,15 +384,6 @@ def host_ranges(prof, names) -> list:
     ``names`` (``record_function`` ranges, not their device copies)."""
     return [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
             if e.name() in names and e.device_type() != torch.autograd.DeviceType.CUDA]
-
-
-def kernels_under(event) -> list:
-    """Device kernels launched inside a profiler event (of ``prof.events()``)
-    and its children."""
-    found = list(event.kernels)
-    for child in event.cpu_children:
-        found += kernels_under(child)
-    return found
 
 
 # ------------------------------------------------------------ numeric triage

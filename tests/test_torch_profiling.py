@@ -9,6 +9,12 @@ made forward and for one made only in the backward, passes clean code, and
 checks the hand kernels' outputs through ``check_kernel_output``;
 ``debug_nans`` and ``deoptimized`` restore every setting they touch, also
 when their body raises; ``trace`` writes a trace holding a range's name.
+The span (``named_scope``): inside a profiler window its host stamps
+bracket its ``record_function`` event within 1 ms (the profiler's clock),
+outside one it records nothing and enters no range, a span not asked to
+time the card makes no CUDA event even where a card is in use, and its
+totals add up over nested spans; ``backward_span`` opens the backward spans in the order
+autograd reaches the stages and closes the last as the pass ends.
 
 The tests marked ``cuda`` run the profiler reader, the graph timer and the
 deterministic mode on the card; this file imports no jax, so they run on a
@@ -164,6 +170,103 @@ def test_trace_writes_a_trace_with_the_range(tmp_path, capsys, link):
     assert (files[0] in capsys.readouterr().out) == link
 
 
+# ------------------------------------------------------------------ spans
+
+CPU = [torch.profiler.ProfilerActivity.CPU]
+
+
+@pytest.fixture
+def spans():
+    """The span log, empty before and after the test."""
+    profiling.reset_spans()
+    yield profiling
+    profiling.reset_spans()
+
+
+def test_span_stamps_bracket_its_range_on_the_profilers_clock(spans):
+    with torch.profiler.profile(activities=CPU) as prof:
+        for _ in range(5):
+            with spans.named_scope("ddsp_span_under_test"):
+                torch.ones(256).cumsum(0)
+                time.sleep(0.002)
+    events = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                    if e.name() == "ddsp_span_under_test"
+                    and e.device_type() == torch.autograd.DeviceType.CPU)
+    records = [(a, b) for name, a, b, dev in spans.span_records()]
+    assert len(events) == len(records) == 5
+    # the profiler maps its stamps with a calibration of its own, which may
+    # differ from the span log's by microseconds (another clock: by years)
+    calibration = 20_000
+    for (a, b), (ea, eb) in zip(records, events):
+        assert -calibration <= ea - a <= 1_000_000 and -calibration <= b - eb <= 1_000_000
+
+
+def test_span_outside_a_window_records_nothing_and_enters_no_range(spans, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a span entered a range or made an event outside a window")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    x = torch.ones(4, requires_grad=True)
+    with spans.named_scope("outer"):
+        with spans.named_scope("inner"):
+            y = (2 * x).sin()
+        spans.backward_span("inner", y)
+    assert y._backward_hooks is None  # no hook registered
+    y.sum().backward()
+    assert spans.span_records() == [] and spans.span_totals() == {}
+
+
+def test_span_without_device_makes_no_event_on_a_card(spans, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a host-only span made an event")
+
+    monkeypatch.setattr(spans, "_on_card", lambda: True)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    with torch.profiler.profile(activities=CPU):
+        with spans.named_scope("host_only"):
+            torch.ones(4).sum()
+    assert spans.span_totals()["host_only"]["device_s"] is None
+
+
+def test_span_totals_add_up_over_nested_spans(spans):
+    with torch.profiler.profile(activities=CPU):
+        for _ in range(2):
+            with spans.named_scope("outer"):
+                for _ in range(3):
+                    with spans.named_scope("inner"):
+                        time.sleep(0.001)
+                time.sleep(0.001)
+    records = spans.span_records()
+    totals = spans.span_totals()
+    assert {k: v["count"] for k, v in totals.items()} == {"outer": 2, "inner": 6}
+    assert [r[0] for r in records] == (["inner"] * 3 + ["outer"]) * 2
+    for name in ("outer", "inner"):
+        want = sum(1e-9 * (b - a) for n, a, b, _ in records if n == name)
+        assert totals[name]["host_s"] == pytest.approx(want)
+        if not torch.cuda.is_initialized():
+            assert totals[name]["device_s"] is None  # no card in use
+    assert totals["inner"]["host_s"] >= 6e-3
+    assert totals["outer"]["host_s"] >= totals["inner"]["host_s"] + 2e-3
+
+
+def test_backward_spans_follow_autograd_and_close_at_the_end(spans):
+    x = torch.ones(8, requires_grad=True)
+    with torch.profiler.profile(activities=CPU):
+        for _ in range(2):
+            a = (3 * x).tanh()
+            spans.backward_span("first", a)
+            b = a.exp() * a
+            spans.backward_span("second", b)
+            loss = b.sum()
+            spans.backward_span("last", loss)
+            torch.autograd.grad(loss, [x])
+            # the pass's last span closed as it ended
+            assert spans._SPANS.backward is None
+    names = [r[0] for r in spans.span_records()]
+    assert names == ["backward.last", "backward.second", "backward.first"] * 2
+
+
 # ------------------------------------------------------------------ the card
 
 
@@ -192,8 +295,34 @@ def test_kernel_durations_read_a_window_on_card(cuda_device):
     assert any(n.startswith("Memcpy") for n in names)
     assert len(profiling.device_events(prof, copies=False)) == len(ns)
     assert [r[0] for r in profiling.host_ranges(prof, ("matmuls",))] == ["matmuls"]
-    under = [k for e in prof.events() if e.name == "matmuls" for k in profiling.kernels_under(e)]
-    assert len(under) >= 3
+
+
+@pytest.mark.cuda
+def test_span_times_its_work_on_card(cuda_device):
+    """A ``device=True`` span's device seconds are its event pair's elapsed
+    time: at least the kernels it launched, at most the wall time from its
+    opening to the synchronise after it.  A span without it times nothing."""
+    profiling.reset_spans()
+    a = torch.randn(2048, 2048, device=cuda_device)
+    a = a @ a / 2048  # cuBLAS's handle and workspace, outside the window
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        with profiling.named_scope("matmuls", device=True):
+            for _ in range(8):
+                a = a @ a / 2048
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    kernels_s = 1e-9 * sum(profiling.kernel_durations_ns(prof))
+    with torch.profiler.profile(activities=activities):
+        with profiling.named_scope("host_only"):
+            a = a @ a / 2048
+        torch.cuda.synchronize()
+    totals = profiling.span_totals()
+    profiling.reset_spans()
+    assert totals["matmuls"]["count"] == 1 and totals["host_only"]["device_s"] is None
+    assert 0.95 * kernels_s <= totals["matmuls"]["device_s"] <= wall_s
 
 
 @pytest.mark.cuda
