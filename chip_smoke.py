@@ -281,11 +281,26 @@ Phases, each of which must pass (any failure exits non-zero):
    (e) ``reconstruct.main(['--checkpoint_dir', fixture])`` and
    ``server.load_decoder`` give the fixture's decoder bit for bit on the
    card.
+21. the GRU recurrence's gate kernels (``ops/cuda/gru.py``,
+   ``csrc/gru_gates.cu``: ``gru_gates_fwd`` and ``gru_gates_bwd``)
+   against their plain version at the training cell's shape (384, 172,
+   512) with a gradient, serving's (2,048, 1, 512) with and without, and
+   a 60 s file's (1, 5,168, 512) without: outputs, last hidden and the
+   gradients of gi, h0, W_hh and b_hh within 1e-6 of each one's norm, T
+   launches of each kernel a call (of the forward alone without a
+   gradient); each kernel timed a launch (a call and in a CUDA graph)
+   beside its bytes' bound and the plain gate arithmetic, the step's
+   GEMM, and the whole sequence (forward; forward and backward) beside
+   the step-by-step loop the GRU ran before and cuDNN's ``torch.nn.GRU``
+   on the same weights (``library_ms``; the port never calls it).
+   Since then every phase's exact launch checks count the gate kernel's
+   launches too: once a frame and layer (a hop in serving).
 
 The line before the last is a JSON object describing each kernel (launches
 on its main path, the real-time path's launches of K5 and K1 as
 ``launches_realtime``, the reconstruction's K1 launches as
-``launches_reconstruct`` with its timing at that shape, phase 17's
+``launches_reconstruct`` with its timing at that shape, the GRU gate
+kernels' launches a call at phase 21's shapes, phase 17's
 launches of K1, K2 and S1 as ``launches_parallel`` (K1's by render;
 K1's and K2's by DP, SP, DP x TP and DP x SP x TP steps; S1's by DP and
 DP x TP steps), K1 at the TP
@@ -2154,6 +2169,7 @@ def phase_reconstruct(device):
     from ddsp_tpu_torch.models.autoencoder import autoencoder_init, encode
     from ddsp_tpu_torch.models.convert import load_lightning_decoder
     from ddsp_tpu_torch.models.crepe import save_torch_checkpoint
+    from ddsp_tpu_torch.models import nn as nn_module
     from ddsp_tpu_torch.models.lightning_export import save_torch_decoder
     from ddsp_tpu_torch.ops.cuda import launch_counts, osc_frames, reset_launch_counts
     from ddsp_tpu_torch.ops.fir import PRNGKey
@@ -2200,14 +2216,21 @@ def phase_reconstruct(device):
                 "the exported decoder does not read back bit-equal")
         result["cli"] = dict(stats, process_s=cli_s)
 
-        # the main path in this process: counted from 0, one K1 launch
+        # the main path in this process: counted from 0, one K1 launch and
+        # the GRU's gate kernel once a frame
         calls, launch = [], osc_frames.osc_frames_fwd
+        gru_frames, gru_sequence = [], nn_module.gru_sequence
 
         def recorded(*args, **kwargs):
             calls.append((args, kwargs, launch(*args, **kwargs)))
             return calls[-1][2]
 
+        def recorded_gru(gi, *args):
+            gru_frames.append(gi.shape[1])
+            return gru_sequence(gi, *args)
+
         osc_frames.osc_frames_fwd = recorded
+        nn_module.gru_sequence = recorded_gru
         try:
             with written_audio() as written:
                 reset_launch_counts()
@@ -2217,12 +2240,17 @@ def phase_reconstruct(device):
                 counts, by_variant = launch_counts(), dict(osc_frames.VARIANT_LAUNCHES)
         finally:
             osc_frames.osc_frames_fwd = launch
+            nn_module.gru_sequence = gru_sequence
         k1_rot = osc_frames.variant_name("osc_frames_fwd", "rot")
         launched = {k: v for k, v in counts.items() if v}
         log(f"[reconstruct] reconstruct_file on the card: hand kernels launched {launched} "
-            f"{by_variant}; wall {first['wall_s']:.3f} s (the first call in this process)")
-        require(launched == {"osc_frames_fwd": 1} and by_variant == {k1_rot: 1},
-                f"reconstruct_file launched {launched} {by_variant}, not one {k1_rot}")
+            f"{by_variant}; GRU calls over {gru_frames} frames; wall {first['wall_s']:.3f} s "
+            f"(the first call in this process)")
+        want = {"osc_frames_fwd": 1, "gru_gates_fwd": sum(gru_frames)}
+        require(launched == want and by_variant == {k1_rot: 1}
+                and len(gru_frames) == conf.decoder_gru_layers,
+                f"reconstruct_file launched {launched} {by_variant}, not one {k1_rot} and the "
+                f"GRU's gate kernel once a frame ({gru_frames})")
         # the float audio, not its WAV: no sample clipped, and the CLI's WAV
         # within a 16-bit step of it
         audio_out, peak = written[0], float(np.abs(written[0]).max())
@@ -3156,9 +3184,9 @@ def phase_measurement(device, smi: str, train_ms: float):
     from ddsp_tpu_torch.config import Config
     from ddsp_tpu_torch.models.controller import decoder_init
     from ddsp_tpu_torch.models.crepe import crepe_init
-    from ddsp_tpu_torch.models.nn import gru_cell
     from ddsp_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from ddsp_tpu_torch.ops.cuda import oscillator as osc_cuda
+    from ddsp_tpu_torch.ops.cuda.gru import gru_sequence
     from ddsp_tpu_torch.utils import multistream_frontier as mf
     from ddsp_tpu_torch.utils import server_drive
     from ddsp_tpu_torch.utils.profile_training import profile as profile_steps
@@ -3169,12 +3197,15 @@ def phase_measurement(device, smi: str, train_ms: float):
     deadline = mf.deadline_ms(conf)
     out = {}
 
-    def only_k5(steps: int, what: str) -> None:
+    def only_k5(steps: int, what: str, flushes: int = 0) -> None:
         launched = {k: v for k, v in launch_counts().items() if v}
         by_fill = dict(osc_cuda.VARIANT_LAUNCHES)
-        require(launched == {"osc_hop_slots": steps} and by_fill == {rot: steps},
-                f"{what} launched {launched} ({by_fill}) in {steps} steps, not K5 once a step "
-                f"on {rot}")
+        want = {"osc_hop_slots": steps,
+                "gru_gates_fwd": (steps - flushes) * conf.decoder_gru_layers}
+        require(launched == want and by_fill == {rot: steps},
+                f"{what} launched {launched} ({by_fill}) in {steps} steps ({flushes} flushes), "
+                f"not K5 once a step on {rot} and the GRU's gate kernel once a step and layer "
+                f"outside the flushes")
 
     reset_launch_counts()  # the frontier's steps from here
     lines = []
@@ -3200,10 +3231,10 @@ def phase_measurement(device, smi: str, train_ms: float):
             f"server drive: {drive['sessions_completed']} of {drive['sessions_expected']} "
             f"sessions, errors {drive['errors']}")
     require(drive["sessions_on_reused_slots"] > 0, "no session reused a slot")
-    only_k5(drive["device_steps"], "the server drive")
+    only_k5(drive["device_steps"], "the server drive", drive["device_flushes"])
     out["server_drive"] = {k: drive[k] for k in (
         "aggregate_hops_per_s", "wall_s", "sessions_completed", "sessions_on_reused_slots",
-        "fresh_slot_max_abs_err", "device_steps")}
+        "fresh_slot_max_abs_err", "device_steps", "device_flushes")}
 
     gru = params.controller.gru.to(device)
     t, units = conf.frames_per_example, conf.decoder_gru_units
@@ -3213,10 +3244,7 @@ def phase_measurement(device, smi: str, train_ms: float):
 
     @torch.no_grad()
     def recurrence():
-        h = h0
-        for i in range(t):
-            h = gru_cell(gru.weight_hh_l0, gru.bias_hh_l0, h, gi[:, i])
-        return h
+        return gru_sequence(gi, h0, gru.weight_hh_l0, gru.bias_hh_l0)
 
     gru_s = 1e-3 * graph_ms(recurrence, 1) / t
     log(f"[measure] GRU recurrence step at batch {conf.batch_size}, {units} units, from a CUDA "
@@ -3518,8 +3546,11 @@ def phase_jax_checkpoint(device, full=None):
         log(f"[jax-ckpt] (d) {route} route, launches in {CKPT_FULL_STEPS} resumed steps: "
             f"{counts}, by variant {variants}")
         s1 = CKPT_FULL_STEPS if route == "bfloat16" else 0
+        gru_launches = (CKPT_FULL_STEPS * conf_r.frames_per_example
+                        * conf_r.decoder_gru_layers)
         want_counts = {"osc_frames_fwd": CKPT_FULL_STEPS, "osc_frames_bwd": CKPT_FULL_STEPS,
-                       "osc_frames_overlap_add": CKPT_FULL_STEPS}
+                       "osc_frames_overlap_add": CKPT_FULL_STEPS,
+                       "gru_gates_fwd": gru_launches, "gru_gates_bwd": gru_launches}
         if s1:
             want_counts.update(ct_conv=s1, ct_conv_dsignal=s1)
         require(counts == want_counts, f"(d) {route} route launched {counts} in "
@@ -3577,6 +3608,185 @@ def _module_from(state_dict, conf):
     decoder = Decoder(conf).to(next(iter(state_dict.values())).device)
     decoder.load_state_dict(state_dict)
     return decoder
+
+
+# --------------------------------------------------------------- phase 21
+
+# (B, T, H, with a gradient): the training cell's shape, serving's hop with
+# and without, a 60 s file's frames
+GRU_SHAPES = ((384, 172, 512, True), (2048, 1, 512, True), (2048, 1, 512, False),
+              (1, 5168, 512, False))
+# kernels vs plain: the same GEMMs, the gates rounded op by op alike
+GRU_REL = 1e-6
+# a step's floats a (batch row, unit): forward gi_t and gh (3 each) and
+# h_{t-1} in, h_t and the four saved planes out; backward dy, the carry,
+# four planes and h_{t-1} in, dgi and dgh (3 each) and the carry out; and
+# the gate arithmetic's operations
+GRU_FWD_FLOATS, GRU_BWD_FLOATS = 12, 14
+GRU_FWD_FLOP, GRU_BWD_FLOP = 17, 15
+
+
+def gru_operands(b: int, t: int, h: int, device, seed: int, grad: bool):
+    """gi (B, T, 3H), h0 (B, H), W_hh, b_hh at the controller's scales."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    bound = 1.0 / np.sqrt(h)
+    arrays = (rng.standard_normal((b, t, 3 * h)) * 0.5, rng.standard_normal((b, h)) * 0.1,
+              rng.uniform(-bound, bound, (3 * h, h)), rng.uniform(-bound, bound, 3 * h))
+    return [torch.tensor(a, dtype=torch.float32, device=device, requires_grad=grad)
+            for a in arrays]
+
+
+def stepwise_gru(gi, h0, w_hh, b_hh):
+    """The recurrence as models/nn.GRU ran it before the gate kernels: torch
+    ops a gate and a step, the step's slice of gi under autograd."""
+    import torch
+
+    h, outs = h0, []
+    for i in range(gi.shape[1]):
+        gh = h @ w_hh.T + b_hh
+        i_r, i_z, i_n = gi[:, i].chunk(3, dim=-1)
+        h_r, h_z, h_n = gh.chunk(3, dim=-1)
+        r = torch.sigmoid(i_r + h_r)
+        z = torch.sigmoid(i_z + h_z)
+        n = torch.tanh(i_n + r * h_n)
+        h = (1.0 - z) * n + z * h
+        outs.append(h)
+    return torch.stack(outs, 1), h
+
+
+def phase_gru(device, smi: str):
+    """The GRU's gate kernels against their plain version, their launches a
+    call, their times a launch and the whole sequence's beside the loop
+    before them and cuDNN's GRU."""
+    import torch
+
+    from ddsp_tpu_torch.device import resolve_device
+    from ddsp_tpu_torch.models.nn import GRU
+    from ddsp_tpu_torch.ops.cuda import gru as gru_ops
+    from ddsp_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    resolve_device(device)  # cuBLAS and cuDNN (the library's GRU) without TF32, as the port runs
+    result = {"shapes": {}}
+    for b, t, h, grad in GRU_SHAPES:
+        args = gru_operands(b, t, h, device, seed=b + t, grad=grad)
+        rng = np.random.default_rng(7)
+        w_out = torch.tensor(rng.standard_normal((b, t, h)), dtype=torch.float32, device=device)
+        w_last = torch.tensor(rng.standard_normal((b, h)), dtype=torch.float32, device=device)
+        runs = []
+        for fn in (gru_ops.gru_sequence, gru_ops.gru_sequence_plain):
+            reset_launch_counts()
+            with torch.set_grad_enabled(grad):
+                out, last = fn(*args)
+                grads = (torch.autograd.grad((out * w_out).sum() + (last * w_last).sum(), args)
+                         if grad else ())
+            torch.cuda.synchronize()
+            runs.append((out, last, grads, {k: v for k, v in launch_counts().items() if v}))
+        (out, last, grads, counts), (p_out, p_last, p_grads, p_counts) = runs
+        want = {"gru_gates_fwd": t, **({"gru_gates_bwd": t} if grad else {})}
+        require(counts == want and not p_counts,
+                f"GRU at {(b, t, h)}: the kernels launched {counts}, the plain version "
+                f"{p_counts}; want {want} and none")
+        rel = {name: float((g - p).detach().norm() / p.detach().norm().clamp_min(1e-30))
+               for name, g, p in zip(
+            ("out", "last", "gi", "h0", "w_hh", "b_hh"), (out, last, *grads),
+            (p_out, p_last, *p_grads))}
+        require(bool(torch.isfinite(out).all()) and max(rel.values()) <= GRU_REL,
+                f"GRU at {(b, t, h)}, grad {grad}: kernels vs plain {rel}")
+        label = f"{b}x{t}x{h}{'' if grad else ' no grad'}"
+        log(f"[gru] {label}: launches {counts}; kernels vs plain, |diff| / |plain| {rel}")
+        result["shapes"][label] = dict(launches=counts, rel=rel)
+        del out, last, grads, p_out, p_last, p_grads, runs
+        torch.cuda.empty_cache()
+
+    # a launch of each kernel at the training shape, mid-sequence
+    b, t, h, _ = GRU_SHAPES[0]
+    gi, h0, w_hh, b_hh = gru_operands(b, t, h, device, seed=21, grad=False)
+    lib = gru_ops._library()
+    bufs = {name: torch.rand(shape, device=device) for name, shape in (
+        ("gh", (b, 3 * h)), ("out", (b, t, h)), ("gates", (4, b, t, h)), ("dy", (b, t, h)),
+        ("carry", (b, h)), ("dgi", (b, t, 3 * h)), ("dgh", (b, t, 3 * h)))}
+    p = {k: v.data_ptr() for k, v in bufs.items()}
+    mid = t // 2
+
+    def fwd_launch():
+        lib.gru_gates_fwd(gi.data_ptr(), p["gh"], h0.data_ptr(), p["out"], p["gates"], b, t, h,
+                          mid, torch.cuda.current_stream().cuda_stream)
+
+    def bwd_launch():
+        lib.gru_gates_bwd(p["dy"], t * h, h, p["carry"], p["gates"], h0.data_ptr(), p["out"],
+                          p["dgi"], p["dgh"], b, t, h, mid, torch.cuda.current_stream().cuda_stream)
+
+    gates = bufs["gates"][:, :, mid]
+    prev = bufs["out"][:, mid - 1]
+    w_t = w_hh.t()
+    rows = {}
+    for name, launch, plain, floats, flop in (
+            ("gru_gates_fwd", fwd_launch,
+             lambda: gru_ops.gates_fwd_plain(gi[:, mid], bufs["gh"], prev),
+             GRU_FWD_FLOATS, GRU_FWD_FLOP),
+            ("gru_gates_bwd", bwd_launch,
+             lambda: gru_ops.gates_bwd_plain(bufs["carry"], *gates, prev),
+             GRU_BWD_FLOATS, GRU_BWD_FLOP)):
+        bound, by = roofline.bound_ms(flop * b * h, floats * 4 * b * h)
+        row = dict(ms=microbench(launch, (), iters=200, warmup=3)["ms"],
+                   graph_ms=graph_ms(launch, iters=200),
+                   plain_ms=microbench(plain, (), iters=50, warmup=3)["ms"],
+                   bound_ms=bound, bound_by=by, shape=[b, t, h])
+        rows[name] = row
+        log(f"[gru] {name} at {(b, t, h)}, t = {mid}: a launch {row['ms']:.5f} ms a call, "
+            f"{row['graph_ms']:.5f} ms in a CUDA graph; plain gate arithmetic "
+            f"{row['plain_ms']:.5f} ms; bound {bound:.5f} ms ({by}); {smi}")
+    gemm_fwd = graph_ms(lambda: torch.addmm(b_hh, prev, w_t, out=bufs["gh"]), iters=200)
+    gemm_bwd = graph_ms(lambda: bufs["carry"].addmm_(bufs["dgh"][:, mid], w_hh), iters=200)
+    log(f"[gru] the step's GEMMs at {(b, h)}: forward addmm {gemm_fwd:.5f} ms, backward "
+        f"{gemm_bwd:.5f} ms (in a CUDA graph); {smi}")
+    result["kernels"] = rows
+    result["gemm_ms"] = {"forward": gemm_fwd, "backward": gemm_bwd}
+    del bufs, gates, prev
+
+    # the whole sequence: the module on x (B, T, 2 x 512) against the loop
+    # before it and cuDNN's GRU from the same weights
+    torch.manual_seed(SEED)
+    ours = GRU(2 * h, h).to(device)
+    cudnn = torch.nn.GRU(2 * h, h, batch_first=True).to(device)
+    cudnn.load_state_dict(ours.state_dict())
+    x = torch.randn((b, t, 2 * h), device=device, requires_grad=True)
+    g = torch.randn((b, t, h), device=device)
+
+    def before(x):
+        gi = x @ ours.weight_ih_l0.T + ours.bias_ih_l0
+        return stepwise_gru(gi, x.new_zeros((b, h)), ours.weight_hh_l0, ours.bias_hh_l0)
+
+    def train(fn):
+        def run():
+            out = fn(x)[0]
+            torch.autograd.grad((out * g).sum(), [x, *ours.parameters(), *cudnn.parameters()],
+                                allow_unused=True)
+        return run
+
+    def infer(fn):
+        def run():
+            with torch.no_grad():
+                fn(x)
+        return run
+
+    seq = {}
+    for name, fn in (("kernels", ours), ("before", before), ("cudnn", cudnn)):
+        seq[name] = {"forward_ms": microbench(infer(fn), (), iters=5, warmup=2)["ms"],
+                     "train_ms": microbench(train(fn), (), iters=3, warmup=1)["ms"]}
+    with torch.no_grad():
+        gap = float((ours(x)[0] - cudnn(x)[0]).norm() / cudnn(x)[0].norm())
+    log(f"[gru] the whole sequence at {(b, t, h)} from x (B, T, {2 * h}): forward / forward "
+        f"and backward, ms a call: gate kernels {seq['kernels']['forward_ms']:.3f} / "
+        f"{seq['kernels']['train_ms']:.3f}; the step-by-step loop before them "
+        f"{seq['before']['forward_ms']:.3f} / {seq['before']['train_ms']:.3f}; cuDNN "
+        f"torch.nn.GRU {seq['cudnn']['forward_ms']:.3f} / {seq['cudnn']['train_ms']:.3f} "
+        f"(outputs {gap:.3e} of their norm from ours); {smi}")
+    result["sequence_ms"] = seq
+    result["cudnn_gap"] = gap
+    return result
 
 
 def timed_phase(phase: int, fn, *args):
@@ -3642,6 +3852,7 @@ def main() -> int:
     timed(18, phase_experiments, device, smi)
     measured = timed(19, phase_measurement, device, smi, auto_ms)
     jax_ckpt = timed(20, phase_jax_checkpoint, device)
+    gru = timed(21, phase_gru, device, smi)
 
     no_library = ("null: no single PyTorch call computes a harmonic sine-bank render or its "
                   "gradient; the nearest is the plain version")
@@ -3729,6 +3940,17 @@ def main() -> int:
             name=name if base != "osc_hop_slots" else "osc_hop_slots[frame rows, h_start]",
             route="cuda", source=f"ddsp_tpu_torch/csrc/{src}", replaces=replaces,
             tpu_function=tpu, library_ms=None, library=no_library, **entry))
+    for name in ("gru_gates_fwd", "gru_gates_bwd"):
+        kernels.append(dict(
+            name=name, route="cuda", source="ddsp_tpu_torch/csrc/gru_gates.cu",
+            replaces="ddsp_tpu/models/nn.py:120", tpu_function="gru_apply's lax.scan step "
+            "(no Pallas kernel)", launches={k: v["launches"].get(name, 0)
+                                            for k, v in gru["shapes"].items()},
+            library_ms=gru["sequence_ms"]["cudnn"]["train_ms" if name.endswith("bwd")
+                                                    else "forward_ms"],
+            library="cuDNN torch.nn.GRU over the whole sequence (forward; forward and "
+            "backward), beside sequence_ms", sequence_ms=gru["sequence_ms"],
+            gemm_ms=gru["gemm_ms"], **gru["kernels"][name]))
     for k in kernels:
         if k["name"] in contract_launches:
             k["launches_contract_step"] = contract_launches[k["name"]]

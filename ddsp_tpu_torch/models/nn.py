@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ddsp_tpu_torch.ops.cuda.gru import gru_sequence
+
 
 def compute_dtype_of(name: str) -> Optional[torch.dtype]:
     """A config's dtype name -> the torch dtype to round to, or None for
@@ -175,20 +177,6 @@ def count_params(module: nn.Module) -> int:
                if t.is_floating_point())
 
 
-def gru_cell(
-    w_hh: torch.Tensor, b_hh: torch.Tensor, h: torch.Tensor, gi: torch.Tensor
-) -> torch.Tensor:
-    """One torch-semantics GRU update from the input projection
-    ``gi = x W_ih^T + b_ih``.  h: (B, H), gi: (B, 3H)."""
-    gh = h @ w_hh.T + b_hh
-    i_r, i_z, i_n = gi.chunk(3, dim=-1)
-    h_r, h_z, h_n = gh.chunk(3, dim=-1)
-    r = torch.sigmoid(i_r + h_r)
-    z = torch.sigmoid(i_z + h_z)
-    n = torch.tanh(i_n + r * h_n)
-    return (1.0 - z) * n + z * h
-
-
 class GRU(nn.Module):
     """Stacked GRU, batch first, ``torch.nn.GRU`` parameterisation."""
 
@@ -214,24 +202,18 @@ class GRU(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (B, T, in), h0: (layers, B, H) or None for zeros ->
         (outputs (B, T, H), advanced hidden (layers, B, H))."""
-        b, t, _ = x.shape
+        b = x.shape[0]
         if h0 is None:
             h0 = x.new_zeros((self.n_layers, b, self.n_hidden))
         finals = []
         seq = x
         for k in range(self.n_layers):
-            # every step's input projection in one matmul; only the
-            # hidden-to-hidden recurrence is sequential
+            # every step's input projection in one matmul, under autograd;
+            # the recurrence is one node over the sequence (ops/cuda/gru.py)
             gi = seq @ getattr(self, f"weight_ih_l{k}").T + getattr(
                 self, f"bias_ih_l{k}"
             )
-            w_hh = getattr(self, f"weight_hh_l{k}")
-            b_hh = getattr(self, f"bias_hh_l{k}")
-            h = h0[k]
-            outs = []
-            for i in range(t):
-                h = gru_cell(w_hh, b_hh, h, gi[:, i])
-                outs.append(h)
-            seq = torch.stack(outs, dim=1)
+            seq, h = gru_sequence(gi, h0[k], getattr(self, f"weight_hh_l{k}"),
+                                  getattr(self, f"bias_hh_l{k}"))
             finals.append(h)
         return seq, torch.stack(finals)

@@ -24,6 +24,8 @@ COUNTERS = {
     "stft_power_bwd_recompute": ("stft", "BWD_RECOMPUTE_LAUNCHES"),
     "ct_conv": ("ct_conv", "LAUNCHES"),
     "ct_conv_dsignal": ("ct_conv", "DSIGNAL_LAUNCHES"),
+    "gru_gates_fwd": ("gru", "FWD_LAUNCHES"),
+    "gru_gates_bwd": ("gru", "BWD_LAUNCHES"),
 }
 # the wrappers that also count their launches by variant
 VARIANT_COUNTERS = ("oscillator", "osc_frames")

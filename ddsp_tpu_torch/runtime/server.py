@@ -132,6 +132,7 @@ class StreamServer:
             torch.zeros((n_streams,), dtype=torch.bool, device=self.device),
         )
         self.steps = 1  # device steps run: this one, then every step and flush
+        self.flushes = 0  # of them, the flushes: tail renders, no controller step
 
     # ------------------------------------------------------------ lifecycle
 
@@ -308,6 +309,7 @@ class StreamServer:
             if flushes:
                 tail = self._flush(self._state)[0].cpu().numpy()
                 self.steps += 1
+                self.flushes += 1
                 for i in flushes:
                     deliver(i, tail[i])
             if resets:

@@ -56,10 +56,11 @@ K6_MMA_FLOP_PER_POINT = 18
 # k1_rot_floor_ms: an estimate from its SASS, not a measurement.
 K1_ROT_FLOOR_MS, K1_ROT_FLOOR_SAMPLES = 0.0991, 1409024
 # The device time of one recurrence step of models/nn.GRU at batch 16
-# (512 units), replayed from a CUDA graph of 172 steps: 27.7105 us by
-# chip_smoke.py phase 19 on an NVIDIA H100 80GB HBM3 at 700.00 W.  The
-# serial floor of the controller's time loop, forward and backward.
-GRU_STEP_LATENCY_S = 27.7105e-6
+# (512 units; one addmm and one gru_gates_fwd launch), replayed from a
+# CUDA graph of 172 steps: 8.1926 us by chip_smoke.py phase 19 on an
+# NVIDIA H100 80GB HBM3 at 700.00 W.  The serial floor of the
+# controller's recurrence, forward and backward.
+GRU_STEP_LATENCY_S = 8.1926e-6
 
 
 def bound_ms(flops: float, n_bytes: float, peak_flops: float = PEAK_FP32_FLOPS):

@@ -21,7 +21,8 @@ Prints one JSON line with ``scripts/server_drive.py``'s keys
 (``sessions_completed``, ``all_finite_in_order``, ``distinct_slots_used``,
 ``errors``, ``aggregate_hops_per_s`` ...) and ``sessions_on_reused_slots``,
 ``fresh_slot_max_abs_err``, ``device_steps`` (the serving steps and flushes
-run, the fresh servers' included: each launches the slot oscillator once)
+run, the fresh servers' included: each launches the slot oscillator once),
+``device_flushes`` (the flushes among them, which run no controller step)
 and the card; exits 1 on any error or missing session.  Runs on CUDA unless ``--device=cpu``.
 """
 
@@ -91,7 +92,7 @@ def drive(params, crepe, conf, clients: int = 16, slots: int = 32, hops: int = 1
     finally:
         srv.close()
     wall = time.time() - t0
-    steps = srv.steps
+    steps, flushes = srv.steps, srv.flushes
     errors += [(c, None, "client hung") for c, t in enumerate(threads) if t.is_alive()]
 
     # the k-th session on each slot, against that slot of a fresh server
@@ -107,6 +108,7 @@ def drive(params, crepe, conf, clients: int = 16, slots: int = 32, hops: int = 1
         ref = MultiStreamServer(params, crepe, conf, slots, noise_seed=seed, device=device)
         want = np.stack([ref.process(b) for b in feed] + [ref.flush()], axis=1)
         steps += 1 + hops + 1  # its warm-up step, the hops, the flush
+        flushes += 1
         for s, r in round_k.items():
             err = float(np.abs(r["out"] - want[s]).max())
             worst = max(worst, err)
@@ -128,6 +130,7 @@ def drive(params, crepe, conf, clients: int = 16, slots: int = 32, hops: int = 1
         "sessions_on_reused_slots": sum(len(v) - 1 for v in by_slot.values()),
         "fresh_slot_max_abs_err": worst,
         "device_steps": steps,
+        "device_flushes": flushes,
     }
 
 

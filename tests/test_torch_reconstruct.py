@@ -376,28 +376,39 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_reconstruct_file_launches_k1_once(cuda_device, files, tmp_path, monkeypatch):
-    """On the card one file is one K1 launch (on the rotation fill) and no
-    other hand kernel; the float audio it writes agrees with the CPU's
-    plain path."""
+    """On the card one file is one K1 launch (on the rotation fill), the
+    GRU's forward gate kernel once a frame and no other hand kernel; the
+    float audio it writes agrees with the CPU's plain path."""
+    from ddsp_tpu_torch.models import nn as port_nn
     from ddsp_tpu_torch.ops.cuda import launch_counts, osc_frames, reset_launch_counts
 
     d, decoder = files
     written, write = [], reconstruct.write_wav
+    frames, gru_sequence = [], port_nn.gru_sequence
 
     def recorded(path, audio, rate):
         written.append(np.array(audio))
         write(path, audio, rate)
 
+    def recorded_gru(gi, *args):
+        frames.append(gi.shape[1])
+        return gru_sequence(gi, *args)
+
     monkeypatch.setattr(reconstruct, "write_wav", recorded)
+    monkeypatch.setattr(port_nn, "gru_sequence", recorded_gru)
     for dev in ("cuda", "cpu"):
         reset_launch_counts()
+        frames.clear()
         reconstruct.reconstruct_file(str(d / "in.wav"), str(tmp_path / f"{dev}.wav"), CONF,
                                      crepe_checkpoint=str(d / "crepe.pth"),
                                      decoder=decoder, device=dev)
         if dev == "cuda":
             counts, by_variant = launch_counts(), dict(osc_frames.VARIANT_LAUNCHES)
+            gru_frames = list(frames)
     assert by_variant == {osc_frames.variant_name("osc_frames_fwd", "rot"): 1}
-    assert {k: v for k, v in counts.items() if v} == {"osc_frames_fwd": 1}
+    assert len(gru_frames) == CONF.decoder_gru_layers
+    assert {k: v for k, v in counts.items() if v} == {"osc_frames_fwd": 1,
+                                                      "gru_gates_fwd": sum(gru_frames)}
     out = dict(zip(("cuda", "cpu"), written))
     # measured 125.73 dB (float audio; H100 80GB HBM3, 700.00 W)
     assert snr_db(out["cpu"], out["cuda"]) > 90.0

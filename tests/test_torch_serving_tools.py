@@ -61,10 +61,14 @@ def test_server_drive_completes_sessions_on_reused_slots():
     # the server's warm-up, a step or flush per engine round, and each fresh
     # server's warm-up, 3 hops and flush in each of at least 3 rounds
     assert result["device_steps"] >= 1 + 3 + 1 + 3 * 5
+    # of them the flushes: one a fresh server, and one a live engine round
+    # with a disconnect
+    assert 3 + 1 <= result["device_flushes"] <= result["device_steps"] - 1 - 3 * 4
     (jax_keys,) = _dumped_keys("server_drive.py")
     assert list(result)[:len(jax_keys)] == jax_keys
     assert list(result)[len(jax_keys):] == ["sessions_on_reused_slots",
-                                           "fresh_slot_max_abs_err", "device_steps"]
+                                           "fresh_slot_max_abs_err", "device_steps",
+                                           "device_flushes"]
     json.dumps(result)
 
 
