@@ -28,6 +28,7 @@ against the reference's steps from the same weights:
 
 from __future__ import annotations
 
+import contextlib
 import math
 import statistics
 from typing import Dict, List, Tuple
@@ -78,6 +79,18 @@ def training_numbers(prog: dict, ref: dict) -> Tuple[Dict[str, float], Dict[str,
     nums = {"loss_step1": losses[0], "loss_later": max(losses[1:], default=0.0),
             "grad_leaf": g, "change_leaf": c}
     return nums, {"grad_leaf": g_leaf, "change_leaf": c_leaf}
+
+
+@contextlib.contextmanager
+def tf32():
+    """Float32 matmuls and cuDNN convolutions on TF32, restored after: the
+    control's precision, the nearest below the configurations' float32."""
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
 # a limits file's entry for a number that is reported and not judged: one

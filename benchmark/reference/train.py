@@ -49,10 +49,11 @@ def block_loss(wd: Dict[str, torch.Tensor], conf: dict, batch: Dict[str, torch.T
 
 
 def steps(params0: Dict[str, torch.Tensor], conf: dict, batches: List[Dict[str, torch.Tensor]],
-          key: torch.Tensor, block: int = 8) -> dict:
+          key: torch.Tensor, block: int = 8, block_loss=block_loss) -> dict:
     """Adam steps (lr ``conf['learning_rate']``) from ``params0`` on
-    ``batches`` in turn, the training key ``key`` split once a step.
-    Returns {'loss': [..], 'grad1': {leaf: first gradient},
+    ``batches`` in turn, the training key ``key`` split once a step, each
+    loss ``block_loss(params, conf, batch, rows, noise_key)`` over blocks of
+    ``block`` rows.  Returns {'loss': [..], 'grad1': {leaf: first gradient},
     'change': {leaf: params after the last step - params0}}."""
     params = {k: v.detach().clone().requires_grad_(True) for k, v in params0.items()}
     mu = {k: torch.zeros_like(v) for k, v in params.items()}

@@ -4,10 +4,13 @@
 * a traffic mix: ``benchmark/workloads/<traffic>.json``;
 * a cell's correctness limits: ``benchmark/limits/<workload>.json``;
 * a per-layer metric: ``benchmark/metrics/<name>.py``, whose ``read(window)``
-  returns the number or None where the window has nothing to read.
+  returns the number or None where the window has nothing to read;
+* a model: ``benchmark/models/<name>.py`` (its interface is in
+  ``benchmark/models/__init__.py``), named by a configuration file's
+  ``model`` key, ``ddsp_decoder`` where it has none.
 
-A later cell, mix or metric is new files and new entries; no file here
-needs an edit for it.
+A later cell, mix, metric or model is new files and new entries; no file
+here needs an edit for it.
 """
 
 from __future__ import annotations
@@ -15,9 +18,18 @@ from __future__ import annotations
 import importlib.util
 import json
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List
 
 HERE = Path(__file__).resolve().parent
+DEFAULT_MODEL = "ddsp_decoder"
+
+
+def _load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 class Registry:
@@ -25,6 +37,7 @@ class Registry:
         self.root = Path(root)
         self.dir = Path(bench_dir)
         self.spec = json.loads((self.root / "BENCHMARK.json").read_text())
+        self._models = {}
 
     def cell(self, workload: str) -> dict:
         for cell in self.spec["workloads"]:
@@ -56,11 +69,16 @@ class Registry:
                 if workload in m.get("workloads", [workload] if m["moves"] in e2e else [])]
 
     def reader(self, metric: str) -> Callable:
-        path = self.dir / "metrics" / f"{metric}.py"
-        spec = importlib.util.spec_from_file_location(f"benchmark_metric_{metric}", path)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        return module.read
+        return _load(self.dir / "metrics" / f"{metric}.py", f"benchmark_metric_{metric}").read
+
+    def model(self, name: str) -> ModuleType:
+        if name not in self._models:
+            self._models[name] = _load(self.dir / "models" / f"{name}.py", f"benchmark_model_{name}")
+        return self._models[name]
+
+    def config_model(self, config: str) -> ModuleType:
+        """The model module the configuration ``config`` names."""
+        return self.model(self.config(config).get("model", DEFAULT_MODEL))
 
     def unit(self, metric: str) -> str:
         for m in self.spec["end_to_end"] + self.spec["per_layer"]:
@@ -69,10 +87,12 @@ class Registry:
         raise KeyError(metric)
 
     def listing(self) -> Dict[str, List[str]]:
-        """Every configuration, traffic mix and metric reader the registry
-        holds, by the files it finds."""
+        """Every configuration, traffic mix, metric reader and model the
+        registry holds, by the files it finds."""
         return {
             "configs": sorted(p.stem for p in (self.dir / "configs").glob("*.json")),
             "workloads": sorted(p.stem for p in (self.dir / "workloads").glob("*.json")),
             "metrics": sorted(p.name[:-3] for p in (self.dir / "metrics").glob("*.py")),
+            "models": sorted(p.stem for p in (self.dir / "models").glob("*.py")
+                             if p.stem != "__init__"),
         }

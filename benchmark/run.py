@@ -3,8 +3,10 @@ this machine:
 
     python3 benchmark/run.py --workload NAME --seed N --seconds S --trace 0|1
 
-From the root of a checkout.  The cell's configuration, traffic mix,
-limits and per-layer readers are found by name (``benchmark/registry.py``).
+From the root of a checkout.  The cell's configuration, model, traffic
+mix, limits and per-layer readers are found by name
+(``benchmark/registry.py``), and the traffic kind's driver as
+``benchmark/<kind>_cell.py``.
 The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics, or
 with ``--trace 1`` its per-layer metrics), ``device``, with ``--trace 1``
@@ -22,14 +24,16 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import contextlib  # noqa: E402
+import importlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
-from types import SimpleNamespace  # noqa: E402
+from types import ModuleType, SimpleNamespace  # noqa: E402
 
-ROOT = Path(__file__).resolve().parents[1]
+HERE = Path(__file__).resolve().parent
+ROOT = HERE.parent
 CACHE = ROOT / ".bench_cache"
 # every build and kernel cache at a fixed path inside the checkout
 os.environ["TORCH_EXTENSIONS_DIR"] = str(CACHE / "torch_extensions")
@@ -57,16 +61,15 @@ def card_context(args, cell: dict, reg: Registry):
     """The context a cell's driver runs in, on the first of the cards."""
     import torch
 
-    from benchmark import program, tracing
-    from ddsp_tpu_torch.device import resolve_device
+    from benchmark import tracing
 
     torch.set_num_threads(2)
-    device = resolve_device("cuda")  # float32 matmuls and cuDNN at full precision
-    conf_fields = reg.config(cell["config"])
-    conf = program.config(conf_fields)
+    model = reg.config_model(cell["config"])
+    device = model.device("cuda")
+    conf = model.config(reg.config(cell["config"]))
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     return SimpleNamespace(
-        conf=conf, cd=program.as_dict(conf), mix=reg.traffic(cell["traffic"]),
+        model=model, conf=conf, cd=model.as_dict(conf), mix=reg.traffic(cell["traffic"]),
         seed=args.seed, seconds=args.seconds, trace=bool(args.trace), device=device,
         t_start=T_START, tamper=lambda x: x, marks=[],
         sync=torch.cuda.synchronize,
@@ -78,14 +81,15 @@ def card_context(args, cell: dict, reg: Registry):
     )
 
 
+def driver(kind: str) -> ModuleType:
+    """The driver of a traffic kind: ``benchmark/<kind>_cell.py``."""
+    if not (HERE / f"{kind}_cell.py").is_file():
+        raise SystemExit(f"benchmark: unknown traffic kind {kind!r}")
+    return importlib.import_module(f"benchmark.{kind}_cell")
+
+
 def drive(ctx):
-    if ctx.mix["kind"] == "serve":
-        from benchmark import serve_cell as kind
-    elif ctx.mix["kind"] == "train":
-        from benchmark import train_cell as kind
-    else:
-        raise SystemExit(f"benchmark: unknown traffic kind {ctx.mix['kind']!r}")
-    return kind.run(ctx)
+    return driver(ctx.mix["kind"]).run(ctx)
 
 
 def result_line(res: dict, reg: Registry, workload: str, limits: dict, trace: bool,

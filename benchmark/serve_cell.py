@@ -1,10 +1,11 @@
-"""A serving cell: ``MultiStreamServer.process`` in a closed loop.
+"""A serving cell: the model's server (``benchmark/models/``) in a closed
+loop, ``process`` called back to back.
 
-Every slot is an active client that sends its next 512-sample block as
-soon as the last call returned (back-to-back hops), each slot playing its
-own looped tone.  The window times every call; afterwards a sample of
-slots drawn from the seed is replayed by the plain reference over every
-call the server made, warm-up included.
+Every slot is an active client that sends its next block as soon as the
+last call returned (back-to-back hops), each slot playing its own looped
+input.  The window times every call; afterwards a sample of slots drawn
+from the seed is replayed by the plain reference over every call the
+server made, warm-up included.
 """
 
 from __future__ import annotations
@@ -15,39 +16,35 @@ import time
 import numpy as np
 import torch
 
-from benchmark import counts, judge, program, traffic, weights
-from benchmark.reference import serve as reference
-from ddsp_tpu_torch.runtime.multistream import MultiStreamServer
+from benchmark import judge
+
+
+def sampled_slots(mix: dict, seed: int) -> torch.Tensor:
+    """The slots the check replays, drawn from the seed, in order."""
+    gen = torch.Generator().manual_seed(int(seed) % (1 << 63))
+    return torch.randperm(int(mix["slots"]), generator=gen)[:int(mix["check_slots"])].sort().values
 
 
 def run(ctx) -> dict:
-    conf, cd, mix, dev = ctx.conf, ctx.cd, ctx.mix, ctx.device
-    n, hop, sr = int(mix["slots"]), conf.hop_length, conf.sample_rate
-    wd = weights.decoder_weights(cd, ctx.seed, dev)
-    wc = weights.crepe_weights(cd, ctx.seed, dev)
-    server = MultiStreamServer(program.decoder(conf, wd, dev), program.crepe(conf, wc, dev),
-                               conf, n, noise_seed=ctx.seed, device=dev)
-    server = ctx.tamper(server)
+    model, cd, mix, dev = ctx.model, ctx.cd, ctx.mix, ctx.device
+    n, hop, sr = int(mix["slots"]), cd["hop_length"], cd["sample_rate"]
+    inputs = model.serve_inputs(ctx)
+    server = ctx.tamper(model.serve_program(ctx, inputs))
     ctx.marks.append(("server", time.perf_counter() - ctx.t_start))
-    loop_dev = traffic.serving_loop(mix, cd, ctx.seed, dev)
-    loop = loop_dev.cpu().numpy()
-    del loop_dev
+    loop = model.serve_traffic(ctx)
+    ctx.marks.append(("traffic", time.perf_counter() - ctx.t_start))
     n_loop = loop.shape[0]
-    # the slots the check replays, drawn from the seed
-    gen = torch.Generator().manual_seed(int(ctx.seed) % (1 << 63))
-    slots = torch.randperm(n, generator=gen)[:int(mix["check_slots"])].sort().values
+    slots = sampled_slots(mix, ctx.seed)
     idx = slots.numpy()
-    # each call keeps the sampled rows of its answer, and the f0 and phase
-    # the call left in the server's state (device tensors, not read back)
-    outs, f0s, phases = [], [], []
+    # each call keeps the sampled rows of its answer, and what the check
+    # follows of the server's state (device tensors, not read back)
+    outs, kept = [], []
 
     def call(k):
         out = server.process(loop[k % n_loop])
         outs.append(out[idx])
-        f0s.append(server.state.cur["f0"])
-        phases.append(server.state.phase)
+        kept.append(model.serve_kept(server))
 
-    ctx.marks.append(("traffic", time.perf_counter() - ctx.t_start))
     for k in range(int(mix["warm_hops"])):
         call(k)
     ctx.sync()
@@ -78,25 +75,37 @@ def run(ctx) -> dict:
         "serve_hop_ms_p95": 1e3 * float(np.percentile(times, 95)),
     }
     if ctx.trace:
-        tail = int(np.ceil(1024 * sr / 16000)) + 64
-        result["window"] = ctx.summarise(prof, program.SERVE_STAGES, window_s, calls, {
-            "unit_flops": counts.serve_hop_flops(cd, n),
-            "features_bound_s": counts.features_bound_s(cd, n, tail),
-        })
+        result["window"] = ctx.summarise(prof, model.STAGES["serve"], window_s, calls,
+                                         model.serve_counts(ctx))
     del prof
 
     # the check: the sampled slots replayed over every call
     total = len(outs)
     out = np.stack(outs, 1)  # (S, K, hop)
     sel = slots.to(dev)
-    f0 = torch.stack([f[sel, 0, 0] for f in f0s], 1)
-    phase = torch.stack([p[sel] for p in phases], 1)
+    followed = model.serve_followed(kept, sel)
     blocks = torch.from_numpy(np.stack([loop[k % n_loop][idx] for k in range(total)], 1)).to(dev)
-    del server, outs, f0s, phases
+    del server, outs, kept
     gc.collect()
     ctx.free()
     ctx.marks.append(("window end", time.perf_counter() - ctx.t_start))
-    ref = reference.replay(wd, wc, cd, blocks, f0, phase, ctx.seed, sel)
-    result["numbers"] = judge.serving_numbers(out, phase, ref)
+    ref = model.serve_reference(ctx, inputs, blocks, followed, sel)
+    result["numbers"] = judge.serving_numbers(out, followed["phase"], ref)
     ctx.marks.append(("check end", time.perf_counter() - ctx.t_start))
     return result
+
+
+def control(ctx, calls: int) -> dict:
+    """The control's numbers (``benchmark/controls/readings.py``): the plain
+    reference on TF32 in the program's place over ``calls`` calls of the
+    sampled slots, making its own decisions, judged by the float32
+    reference that follows them."""
+    inputs = ctx.model.serve_inputs(ctx)
+    slots = sampled_slots(ctx.mix, ctx.seed).to(ctx.device)
+    loop = torch.from_numpy(ctx.model.serve_traffic(ctx)).to(ctx.device)
+    idx = torch.arange(calls) % loop.shape[0]
+    blocks = loop[idx][:, slots].transpose(0, 1).contiguous()
+    with judge.tf32():
+        ctl = ctx.model.serve_reference(ctx, inputs, blocks, None, slots)
+    ref = ctx.model.serve_reference(ctx, inputs, blocks, ctl, slots)
+    return judge.serving_numbers(ctl["out"].cpu().numpy(), ctl["phase"], ref)

@@ -8,8 +8,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from benchmark import judge
-from benchmark.controls import readings
+from benchmark import judge, serve_cell, train_cell
 from benchmark.registry import Registry
 from benchmark.tests import tiny
 
@@ -28,16 +27,18 @@ def card():
 
 @pytest.mark.cuda
 def test_tf32_control_fails_serving(card):
-    ctx = tiny.cpu_context(dict(tiny.SERVE_MIX, slots=16, check_slots=4), **WIDE)
-    nums = readings.control_serve(ctx.cd, ctx.mix, 11, 200, card)
+    ctx = tiny.cpu_context(dict(tiny.SERVE_MIX, slots=16, check_slots=4), seed=11, **WIDE)
+    ctx.device = card
+    nums = serve_cell.control(ctx, 200)
     assert not judge.verdict(nums, REG.limits("serve_tiny_n2048"))[0], nums
 
 
 @pytest.mark.cuda
 def test_tf32_control_fails_training(card):
-    ctx = tiny.cpu_context(dict(tiny.TRAIN_MIX, batch=8, reference_rows=8),
+    ctx = tiny.cpu_context(dict(tiny.TRAIN_MIX, batch=8, reference_rows=8), seed=11,
                            **dict(WIDE, example_duration=2.0, mss_ffts=[2048, 1024, 512, 256,
                                                                         128, 64]))
-    nums = readings.control_train(ctx.cd, ctx.mix, 11, card)
+    ctx.device = card
+    nums = train_cell.control(ctx, 0)
     nums.pop("worst")
     assert not judge.verdict(nums, REG.limits("train_tiny_b384"))[0], nums

@@ -7,7 +7,8 @@ from pathlib import Path
 
 import pytest
 
-from benchmark import counts, program
+from benchmark import counts
+from benchmark.models import ddsp_decoder as model
 from ddsp_tpu_torch.utils import roofline
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -18,8 +19,8 @@ SHAPES = [(384, 172), (16, 172), (128, 1), (2048, 1)]
 
 def _conf(name):
     fields = json.loads((ROOT / "benchmark" / "configs" / f"{name}.json").read_text())
-    conf = program.config(fields)
-    return conf, program.as_dict(conf)
+    conf = model.config(fields)
+    return conf, model.as_dict(conf)
 
 
 @pytest.mark.parametrize("name", CONFIGS)

@@ -8,16 +8,19 @@ import pytest
 
 from benchmark import counts, tracing
 from benchmark.registry import Registry
+from benchmark.tests.test_bm_span_readers import READS
 
 REG = Registry(Path(__file__).resolve().parents[2])
 CONTEXT = {"unit_flops": 1e9, "features_bound_s": 1e-3, "osc_bound_s": 1e-4, "loss_bound_s": 2e-4}
+# the program's span table, as ``tracing.summarise`` hands it to the window
+SPANS = {span: {"count": 100, "host_s": 0.05, "device_s": 0.05} for span, _ in READS.values()}
 STAGES = ("features", "controller", "oscillator", "noise", "reverb", "oscillator_bank", "loss",
           "backward", "optimizer", "filtered_noise")
 
 
 def _window(device_s):
     return tracing.Window(window_s=2.0, busy_s=1.5, units=100, n_ops=50_000, device_s=device_s,
-                          host_s={"optimizer": 0.3}, context=CONTEXT)
+                          host_s={"optimizer": 0.3}, context=dict(CONTEXT, spans=SPANS))
 
 
 @pytest.mark.parametrize("name", sorted(REG.listing()["metrics"]))
@@ -26,7 +29,7 @@ def test_reader(name):
     full = read(_window({s: 0.05 for s in STAGES}))
     assert full is not None and full > 0
     empty = read(tracing.Window(window_s=2.0, busy_s=1.5, units=100, n_ops=50_000,
-                                context=CONTEXT))
+                                context=dict(CONTEXT, spans={})))
     if name.split(".")[0] in ("idle_pct", "mfu_pct", "launches_per_hop", "launches_per_step"):
         assert empty is not None  # whole-window numbers
     else:

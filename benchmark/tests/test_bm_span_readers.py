@@ -1,13 +1,15 @@
 """The readers of the program's spans (``benchmark/spans.py``) on a fake
-totals table: each reads its span's host or device seconds over the
-window's units, and None where the span recorded nothing, where it never
-ran on the card (device seconds), or where the program keeps no table."""
+table in the window's context: each reads its span's host or device
+seconds over the window's units, and None where the span recorded
+nothing, where it never ran on the card (device seconds), or where the
+program keeps no table."""
 
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 
-from benchmark import tracing
+from benchmark import spans, tracing
 from benchmark.registry import Registry
 from ddsp_tpu_torch.utils import profiling
 
@@ -29,7 +31,11 @@ READS = {
     "bwd_oscillator_ms.train": ("backward.oscillator_bank", "device_s"),
     "bwd_controller_ms.train": ("backward.controller", "device_s"),
 }
-WINDOW = tracing.Window(window_s=2.0, busy_s=1.5, units=40, n_ops=1000)
+
+
+def _window(table=None):
+    context = {} if table is None else {"spans": table}
+    return tracing.Window(window_s=2.0, busy_s=1.5, units=40, n_ops=1000, context=context)
 
 
 def _table(span, host_s, device_s):
@@ -38,19 +44,31 @@ def _table(span, host_s, device_s):
 
 
 @pytest.mark.parametrize("name", sorted(READS))
-def test_span_reader(name, monkeypatch):
+def test_span_reader(name):
     span, seconds = READS[name]
     read = REG.reader(name)
-    monkeypatch.setattr(profiling, "span_totals", lambda: _table(span, 0.2, 0.6))
-    want = 1e3 * {"host_s": 0.2, "device_s": 0.6}[seconds] / WINDOW.units
-    assert read(WINDOW) == pytest.approx(want)
-    monkeypatch.setattr(profiling, "span_totals", lambda: _table("elsewhere", 0.2, 0.6))
-    assert read(WINDOW) is None
+    want = 1e3 * {"host_s": 0.2, "device_s": 0.6}[seconds] / 40
+    assert read(_window(_table(span, 0.2, 0.6))) == pytest.approx(want)
+    assert read(_window(_table("elsewhere", 0.2, 0.6))) is None
     if seconds == "device_s":
-        monkeypatch.setattr(profiling, "span_totals", lambda: _table(span, 0.2, None))
-        assert read(WINDOW) is None
-    monkeypatch.delattr(profiling, "span_totals")  # a program without spans
-    assert read(WINDOW) is None
+        assert read(_window(_table(span, 0.2, None))) is None
+    assert read(_window({})) is None  # a program without spans
+    assert read(_window()) is None  # a window without the table
+
+
+def test_the_window_carries_the_span_table(monkeypatch):
+    """``summarise`` reads the program's table once, into the window's
+    context beside the model's counts; without the program's reader the
+    table is empty."""
+    table = _table("hop", 0.2, None)
+    monkeypatch.setattr(profiling, "span_totals", lambda: table)
+    assert spans.totals() == table
+    prof = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: [])))
+    w = tracing.summarise(prof, ("features",), 1.0, 10, {"unit_flops": 5.0})
+    assert w.context == {"unit_flops": 5.0, "spans": table}
+    monkeypatch.delattr(profiling, "span_totals")
+    assert spans.totals() == {}
 
 
 @pytest.mark.parametrize("name", sorted(READS))
@@ -62,5 +80,5 @@ def test_span_metric_entry(name):
 
 
 def test_every_span_reader_is_listed():
-    spans = {m["name"] for m in REG.spec["per_layer"] if m["source"] == "program_span"}
-    assert set(READS) == spans - {"optimizer_host_ms.train"}
+    names = {m["name"] for m in REG.spec["per_layer"] if m["source"] == "program_span"}
+    assert set(READS) == names - {"optimizer_host_ms.train"}

@@ -6,11 +6,12 @@ from __future__ import annotations
 
 import contextlib
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
-import torch
+from benchmark.registry import DEFAULT_MODEL, Registry
 
-from benchmark import program
+REG = Registry(Path(__file__).resolve().parents[2])
 
 TINY_FIELDS = dict(
     n_harmonics=20, n_noise_filters=65, decoder_mlp_units=32, decoder_gru_units=32,
@@ -24,12 +25,15 @@ TRAIN_MIX = dict(TONE, kind="train", batch=4, batches=4, stft_impl="auto", check
                  reference_rows=2)
 
 
-def cpu_context(mix: dict, seed: int = 5, seconds: float = 0.3, tamper=None,
+def cpu_context(mix: dict, seed: int = 5, seconds: float = 0.3, tamper=None, model=None,
                 **fields) -> SimpleNamespace:
-    conf = program.config({**TINY_FIELDS, **fields})
+    """``model``: a model module (``ddsp_decoder`` if None); ``fields``
+    override the narrow widths."""
+    model = model or REG.model(DEFAULT_MODEL)
+    conf = model.config({**TINY_FIELDS, **fields})
     return SimpleNamespace(
-        conf=conf, cd=program.as_dict(conf), mix=mix, seed=seed, seconds=seconds,
-        trace=False, device=torch.device("cpu"), t_start=time.perf_counter(),
+        model=model, conf=conf, cd=model.as_dict(conf), mix=mix, seed=seed, seconds=seconds,
+        trace=False, device=model.device("cpu"), t_start=time.perf_counter(),
         tamper=tamper or (lambda x: x), marks=[], sync=lambda: None,
         profiler=contextlib.nullcontext, memory_peak=lambda: 0, free=lambda: None,
         summarise=None,

@@ -19,6 +19,8 @@ from typing import Dict, Iterable, List, Tuple
 
 import torch
 
+from benchmark import spans
+
 
 def device_events(prof) -> list:
     """Every operation the window saw on the card (kernels, copies, fills),
@@ -69,7 +71,7 @@ class Window:
     host_s: Dict[str, float] = field(default_factory=dict)  # by stage range
     top_ops: List[Tuple[str, float]] = field(default_factory=list)
     idle_by_range: List[Tuple[str, float]] = field(default_factory=list)
-    context: dict = field(default_factory=dict)  # the cell's config, traffic, counts
+    context: dict = field(default_factory=dict)  # the model's counts, the span table
 
     def per_unit_ms(self, *stages: str) -> float:
         return 1e3 * sum(self.device_s.get(s, 0.0) for s in stages) / self.units
@@ -79,7 +81,8 @@ def summarise(prof, stages: Iterable[str], window_s: float, units: int,
               context: dict) -> Window:
     """Reduce a finished profiler window.  ``stages`` are the program's
     ranges, which do not overlap one another; an operation launched
-    outside all of them is charged to 'other'."""
+    outside all of them is charged to 'other'.  ``context`` goes to the
+    window with the program's span table under ``spans``."""
     stages = tuple(stages)
     ops = device_events(prof)
     starts = launch_starts_ns(prof)
@@ -117,5 +120,5 @@ def summarise(prof, stages: Iterable[str], window_s: float, units: int,
         top_ops=[(n, 1e-9 * v) for n, v in top],
         idle_by_range=[(n, 1e-9 * v) for n, v in
                        sorted(idle.items(), key=lambda kv: -kv[1])[:10]],
-        context=context,
+        context=dict(context, spans=spans.totals()),
     )

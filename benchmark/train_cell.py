@@ -1,56 +1,39 @@
-"""A training cell: the decoder's step of ``trainer.make_train_step``,
+"""A training cell: the model's training step (``benchmark/models/``),
 dispatched as ``trainer.fit`` dispatches it: the loss read back every
 ``log_every`` steps, nothing else.
 
 Set-up builds one training object from the seed and takes its first
 steps through the window's own call on the first of the mix's distinct
-batches, reading the losses, the first gradient (from Adam's first
-moment after one step) and the parameters' change; the window then goes
-on with that same object, cycling the batches.  After the window the
-plain reference takes the same first steps from the same weights.
+batches, reading the losses, the first gradient and the parameters'
+change; the window then goes on with that same object, cycling the
+batches.  After the window the plain reference takes the same first steps
+from the same inputs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
-import math
 import time
 
-from benchmark import counts, judge, program, traffic, weights
-from benchmark.reference import threefry
-from benchmark.reference import train as reference
-from ddsp_tpu_torch.ops.spectral import set_stft_impl
-from ddsp_tpu_torch.training import trainer
-
-
-def _norms(named) -> dict:
-    return {k: math.sqrt(float((v.detach().double() ** 2).sum())) for k, v in named}
+from benchmark import judge
 
 
 def run(ctx) -> dict:
-    conf, cd, mix, dev = ctx.conf, ctx.cd, ctx.mix, ctx.device
-    b = int(mix["batch"])
-    set_stft_impl(mix["stft_impl"])
-    start = weights.decoder_weights(cd, ctx.seed, dev)
-    params = program.decoder(conf, start, dev)
-    step_fn = trainer.make_train_step(conf)
-    batches = traffic.training_batches(mix, cd, ctx.seed, dev)
-    key = threefry.seed_key(ctx.seed, dev)
-    opt = trainer.make_optimizer(conf)
-    state = trainer.TrainState(0, params, opt.init(list(params.parameters())), key.clone())
-    step_fn = ctx.tamper(step_fn)
+    model, cd, mix = ctx.model, ctx.cd, ctx.mix
+    inputs = model.train_inputs(ctx)
+    program = model.train_program(ctx, inputs)
+    step_fn, state, batches = ctx.tamper(program.step), program.state, inputs.batches
     ctx.marks.append(("state and batches", time.perf_counter() - ctx.t_start))
 
     n_check = int(mix["check_steps"])
-    names = [k for k, _ in params.named_parameters()]
-    prog = {"loss": []}
+    readings = {"loss": []}
     for i in range(n_check):
         state, metrics = step_fn(state, batches[i % len(batches)])
-        prog["loss"].append(float(metrics["loss"]))
+        readings["loss"].append(float(metrics["loss"]))
         if i == 0:
-            b1 = 0.9  # optax's and the program's Adam: mu = (1 - b1) g after one step
-            prog["grad1"] = _norms((k, mu / (1 - b1)) for k, mu in zip(names, state.opt_state.adam.mu))
-    prog["change"] = _norms((k, p - start[k]) for k, p in params.named_parameters())
+            readings["grad1"] = model.train_grad(program, state)
+    readings["change"] = model.train_change(program, inputs)
     ctx.sync()
     setup_s = time.perf_counter() - ctx.t_start
 
@@ -61,32 +44,40 @@ def run(ctx) -> dict:
         while True:
             state, metrics = step_fn(state, batches[(n_check + steps) % len(batches)])
             steps += 1
-            if steps % conf.log_every == 0:
+            if steps % cd["log_every"] == 0:
                 float(metrics["loss"])
             if time.perf_counter() - t0 >= ctx.seconds:
                 break
         ctx.sync()
         window_s = time.perf_counter() - t0
     memory_peak = ctx.memory_peak()
-    length = cd["frames"] * conf.hop_length
+    length = cd["frames"] * cd["hop_length"]
     result = {"setup_s": setup_s, "attempted": steps, "failed": 0,
               "memory_peak": memory_peak, "window_s": window_s,
-              "metrics": {"train_audio_s_per_s": steps * b * length / conf.sample_rate / window_s}}
+              "metrics": {"train_audio_s_per_s":
+                          steps * int(mix["batch"]) * length / cd["sample_rate"] / window_s}}
     if ctx.trace:
-        result["window"] = ctx.summarise(prof, program.TRAIN_STAGES, window_s, steps, {
-            "unit_flops": counts.train_step_flops(cd, b, finetune=False),
-            "osc_bound_s": counts.osc_forward_bound_s(b, cd["frames"], conf.hop_length,
-                                                      conf.n_harmonics),
-            "loss_bound_s": counts.mss_forward_bound_s(cd, b, length),
-        })
-    del prof, state, metrics, params, step_fn, opt
+        result["window"] = ctx.summarise(prof, model.STAGES["train"], window_s, steps,
+                                         model.train_counts(ctx))
+    del prof, state, metrics, program, step_fn
     gc.collect()
     ctx.free()
     ctx.marks.append(("window end", time.perf_counter() - ctx.t_start))
-    ref = reference.steps(start, cd, batches[:n_check], key, block=int(mix["reference_rows"]))
-    ref = {"loss": ref["loss"], "grad1": reference.leaf_norms(ref["grad1"]),
-           "change": reference.leaf_norms(ref["change"])}
-    result["numbers"], result["worst_leaves"] = judge.training_numbers(prog, ref)
+    ref = model.train_reference(ctx, inputs)
+    result["numbers"], result["worst_leaves"] = judge.training_numbers(readings, ref)
     ctx.marks.append(("check end", time.perf_counter() - ctx.t_start))
-    set_stft_impl("auto")
+    model.train_release(ctx)
     return result
+
+
+def control(ctx, calls: int) -> dict:
+    """The control's numbers (``benchmark/controls/readings.py``): the plain
+    reference's first steps on TF32 in the program's place, judged against
+    the float32 reference's from the same inputs.  ``calls`` is serving's."""
+    inputs = ctx.model.train_inputs(ctx)
+    out = {}
+    for name, precision in (("control", judge.tf32()), ("reference", contextlib.nullcontext())):
+        with precision:
+            out[name] = ctx.model.train_reference(ctx, inputs)
+    nums, worst = judge.training_numbers(out["control"], out["reference"])
+    return dict(nums, worst=worst)
