@@ -39,6 +39,16 @@ precision or a code path do this in the port:
   float32 either way.
 
 Everything else runs in float32 with TF32 off (``device.resolve_device``).
+
+The ``z_*`` fields are the port's own: ``z_dims`` above 0 gives the
+decoder the DDSP autoencoder's latent z(t) (Engel et al. 2020, magenta/ddsp
+``ae.gin``): an MFCC encoder with a GRU whose output, ``z_dims`` wide, is
+the controller's third input stack (``models/z_encoder.py``).  While
+``z_dims`` is 0, the default, there is no z encoder and the JSON form
+leaves the ``z_*`` fields out, so it stays the JAX package's; ``from_dict``
+accepts them either way.  The JAX package has no z encoder: the entry
+points that would need one in a stream, or the JAX package's trees, refuse
+a configuration with z (:func:`refuse_z`).
 """
 
 from __future__ import annotations
@@ -135,6 +145,11 @@ class Config:
     mesh_data: int = 1  # data-parallel mesh axis size
     mesh_time: int = 1  # time-sharding mesh axis size (long renders)
 
+    # --- latent z(t) encoder (the port's own; see the module docstring) -----
+    z_dims: int = 0  # width of z; 0: no z encoder
+    z_time_steps: int = 125  # z frames an example (models/z_encoder.py)
+    z_rnn_units: int = 512
+
     # ------------------------------------------------------------------------
     @property
     def example_length(self) -> int:
@@ -169,8 +184,15 @@ class Config:
         return self.reverb_length if self.reverb_length else self.sample_rate
 
     # --- serialization ------------------------------------------------------
+    def to_dict(self) -> Dict[str, Any]:
+        """The fields, the ``z_*`` ones left out while ``z_dims`` is 0."""
+        d = dataclasses.asdict(self)
+        if not self.z_dims:
+            d = {k: v for k, v in d.items() if not k.startswith("z_")}
+        return d
+
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+        return json.dumps(self.to_dict(), indent=2, sort_keys=True)
 
     @classmethod
     def from_json(cls, text: str) -> "Config":
@@ -211,3 +233,12 @@ class Config:
                 overrides[key] = value
         merged = dict(dataclasses.asdict(conf), **overrides)
         return cls.from_dict(merged)
+
+
+def refuse_z(conf: Config, what: str, needs: str) -> None:
+    """Raise ``ValueError`` if ``conf`` has a z encoder: ``what`` does not
+    support one, for want of ``needs``."""
+    if conf.z_dims:
+        raise ValueError(
+            f"{what} does not support a z encoder (z_dims={conf.z_dims}): it needs {needs}, "
+            "which the port does not have; use z_dims=0")

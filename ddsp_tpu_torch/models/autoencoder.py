@@ -64,7 +64,8 @@ def autoencoder_apply(
 ) -> torch.Tensor:
     """Reconstruct audio: encode (in the ``encoder`` span) -> decode
     (autoencoder.py:17-22).  ``freeze_crepe=False`` lets the gradient flow
-    into CREPE (analysis-by-synthesis finetuning)."""
+    into CREPE (analysis-by-synthesis finetuning).  A decoder with z takes
+    it from ``audio``."""
     with named_scope("encoder"):
         features = encode(params, audio, conf, freeze_crepe)
-    return decoder_apply(params["decoder"], features, conf, noise_key)
+    return decoder_apply(params["decoder"], dict(features, audio=audio), conf, noise_key)

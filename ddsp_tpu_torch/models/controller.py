@@ -10,7 +10,17 @@ oscillator_bank, filtered_noise, reverb), the counterparts of the JAX
 package's ``named_scope``s; in a profiler window each stage's outputs also
 name its backward (``backward.<stage>``, ``profiling.backward_span``).
 
-``Config.compute_dtype`` other than 'float32' runs the three MLPs with
+With ``Config.z_dims`` above 0 (the port's own, not in the JAX package)
+the decoder is the DDSP autoencoder's (Engel et al. 2020, magenta/ddsp
+``ae.gin``): ``Decoder.z_encoder`` (``models/z_encoder.py``) computes z(t)
+from ``batch['audio']`` inside ``decoder_apply``, in the span
+``z_encoder`` with its backward ``backward.z_encoder``, and a third input
+MLP ``mlp_z`` over z sits beside the f0 and loudness MLPs: the GRU takes
+cat(f0, loudness, z) and ``mlp_gru`` cat(GRU out, f0, loudness, z).
+Without z the modules, their ``state_dict`` and the launches are the
+kureta decoder's.
+
+``Config.compute_dtype`` other than 'float32' runs the MLPs with
 the JAX package's roundings to that dtype (``models/nn.MLP``), in
 ``decoder_apply`` and ``decoder_synth_only`` only, where the JAX package
 reads it; the GRU and the dense heads stay float32, and so do the stream
@@ -32,6 +42,7 @@ from ddsp_tpu_torch.models.synths import (
     oscillator_apply,
     reverb_apply,
 )
+from ddsp_tpu_torch.models.z_encoder import ZEncoder, z_encoder_apply
 from ddsp_tpu_torch.utils.profiling import backward_span, named_scope
 
 
@@ -48,8 +59,10 @@ class Controller(nn.Module):
         gru_units = conf.decoder_gru_units
         self.mlp_f0 = MLP(1, units, layers)
         self.mlp_loudness = MLP(1, units, layers)
-        self.gru = GRU(2 * units, gru_units, conf.decoder_gru_layers)
-        self.mlp_gru = MLP(gru_units + 2 * units, units, layers)
+        self.mlp_z = MLP(conf.z_dims, units, layers) if conf.z_dims else None
+        stacks = 3 if conf.z_dims else 2
+        self.gru = GRU(stacks * units, gru_units, conf.decoder_gru_layers)
+        self.mlp_gru = MLP(gru_units + stacks * units, units, layers)
         self.dense_harmonic = nn.Linear(units, conf.n_harmonics)
         self.dense_loudness = nn.Linear(units, 1)
         self.dense_filter = nn.Linear(units, conf.n_noise_filters)
@@ -60,13 +73,12 @@ class Controller(nn.Module):
         hidden: Optional[torch.Tensor] = None,
         compute_dtype: Optional[torch.dtype] = None,
     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        latent_f0 = self.mlp_f0(batch["normalized_cents"], compute_dtype)
-        latent_loud = self.mlp_loudness(batch["loudness"], compute_dtype)
-        latent, new_hidden = self.gru(
-            torch.cat([latent_f0, latent_loud], dim=-1), hidden
-        )
-        latent = self.mlp_gru(torch.cat([latent, latent_f0, latent_loud], -1),
-                              compute_dtype)
+        stacks = [self.mlp_f0(batch["normalized_cents"], compute_dtype),
+                  self.mlp_loudness(batch["loudness"], compute_dtype)]
+        if self.mlp_z is not None:
+            stacks.append(self.mlp_z(batch["z"], compute_dtype))
+        latent, new_hidden = self.gru(torch.cat(stacks, dim=-1), hidden)
+        latent = self.mlp_gru(torch.cat([latent, *stacks], -1), compute_dtype)
         controls = {
             "f0": batch["f0"],
             "c": modified_sigmoid(self.dense_harmonic(latent)),
@@ -79,12 +91,14 @@ class Controller(nn.Module):
 class Decoder(nn.Module):
     """Controller plus reverb parameters; ``state_dict`` keys are the
     learned keys of the reference Decoder (``controller.*``,
-    ``reverb.{noise,decay,wet}``)."""
+    ``reverb.{noise,decay,wet}``), and ``z_encoder.*`` after them where the
+    configuration has z."""
 
     def __init__(self, conf: Config):
         super().__init__()
         self.controller = Controller(conf)
         self.reverb = Reverb(conf)
+        self.z_encoder = ZEncoder(conf) if conf.z_dims else None
 
 
 def controller_init(conf: Config, seed: int = 0) -> Controller:
@@ -110,7 +124,8 @@ def controller_apply(
     """Map features to synthesis controls.
 
     Args:
-      batch: {'normalized_cents', 'loudness', 'f0'}, each (B, T, 1).
+      batch: {'normalized_cents', 'loudness', 'f0'}, each (B, T, 1), and
+        'z' (B, T, z_dims) for a controller with z.
       hidden: optional (layers, B, H) GRU state.
       compute_dtype: the MLPs' low-precision dtype, or None for float32.
 
@@ -118,6 +133,19 @@ def controller_apply(
       (controls {f0, c, a, H}, advanced hidden state).
     """
     return controller(batch, hidden, compute_dtype)
+
+
+def with_z(params: Decoder, batch: Dict[str, torch.Tensor], conf: Config
+           ) -> Dict[str, torch.Tensor]:
+    """``batch`` with 'z' from its 'audio' where the decoder has a z encoder,
+    in the span ``z_encoder``; else ``batch`` itself."""
+    encoder = getattr(params, "z_encoder", None)
+    if encoder is None:
+        return batch
+    with named_scope("z_encoder"):
+        z = z_encoder_apply(encoder, batch["audio"], conf, batch["f0"].shape[1])
+        backward_span("z_encoder", z)
+    return dict(batch, z=z)
 
 
 def decoder_apply(
@@ -131,11 +159,13 @@ def decoder_apply(
     """Full offline decode: controls -> harmonics + noise -> reverb.
 
     The reference Decoder.forward (decoder.py:127-135).  ``batch`` holds
-    {'normalized_cents', 'loudness', 'f0'}, each (B, T, 1); ``noise_key``
+    {'normalized_cents', 'loudness', 'f0'}, each (B, T, 1), and the (B,
+    T*hop) 'audio' for a decoder with z (:func:`with_z`); ``noise_key``
     is a (2,) threefry key; ``noise_row_offset`` is the first row's index
     in the whole batch, whose row keys the noise takes (a data-parallel
     rank's rows, ``parallel/train.py``).  Returns (B, T*hop) audio.
     """
+    batch = with_z(params, batch, conf)
     with named_scope("controller"):
         controls, _ = controller_apply(params.controller, batch,
                                        compute_dtype=compute_dtype_of(conf.compute_dtype))
@@ -159,7 +189,7 @@ def decoder_synth_only(
     noise_key: torch.Tensor,
 ) -> Dict[str, torch.Tensor]:
     """Decode returning the pre- and post-reverb signals and the controls."""
-    controls, _ = controller_apply(params.controller, batch,
+    controls, _ = controller_apply(params.controller, with_z(params, batch, conf),
                                    compute_dtype=compute_dtype_of(conf.compute_dtype))
     harm, _ = oscillator_apply(controls, conf)
     noise = noise_apply(controls, conf, noise_key)

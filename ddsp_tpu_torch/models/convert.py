@@ -32,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ddsp_tpu_torch.config import Config
+from ddsp_tpu_torch.config import Config, refuse_z
 from ddsp_tpu_torch.models.controller import Decoder
 from ddsp_tpu_torch.models.crepe import CAPACITIES, Crepe
 from ddsp_tpu_torch.models.orbax import flatten, is_orbax_checkpoint, read_orbax  # noqa: F401 (re-exported)
@@ -100,9 +100,16 @@ def decoder_from_orbax(path: str, conf: Config) -> Decoder:
     return decoder_from_jax(tree, conf)
 
 
+def _refuse_z_module(decoder, what: str) -> None:
+    if getattr(decoder, "z_encoder", None) is not None:
+        raise ValueError(f"{what} does not support a z encoder: the JAX package's decoder "
+                         "tree has no z leaves; use a decoder with z_dims=0")
+
+
 def decoder_from_jax(np_tree: Dict, conf: Config) -> Decoder:
     """ddsp_tpu decoder tree ``{'controller': ..., 'reverb': ...}`` with
     numpy leaves -> :class:`Decoder`."""
+    refuse_z(conf, "decoder_from_jax", "z leaves in the JAX package's decoder tree")
     return decoder_from_state_dict(_decoder_state_dict(np_tree), conf)
 
 
@@ -139,6 +146,7 @@ def decoder_to_jax(decoder: Decoder) -> Dict:
     """:class:`Decoder` -> ddsp_tpu decoder tree ``{'controller': ...,
     'reverb': ...}`` with numpy leaves: the inverse of
     :func:`decoder_from_jax`."""
+    _refuse_z_module(decoder, "decoder_to_jax")
     sd = {k: v.detach().cpu().numpy() for k, v in decoder.state_dict().items()}
 
     def mlp(prefix: str) -> Dict:
@@ -292,6 +300,8 @@ def train_state_from_jax(np_tree: Dict, template):
     from ddsp_tpu_torch.training.trainer import AdamState, OptState, PlateauState, TrainState
 
     finetune = not isinstance(template.params, Decoder)
+    _refuse_z_module(template.params["decoder"] if finetune else template.params,
+                     "train_state_from_jax")
     want = {p: (np.shape(v), np.asarray(v).dtype) for p, v in flatten(
         (autoencoder_to_jax if finetune else decoder_to_jax)(template.params)).items()}
 
@@ -360,6 +370,8 @@ def train_state_to_jax(state) -> Dict:
     resumed state with the JAX package's leaf by leaf."""
     from ddsp_tpu_torch.training.trainer import PlateauState
 
+    decoder = state.params if isinstance(state.params, Decoder) else state.params["decoder"]
+    _refuse_z_module(decoder, "train_state_to_jax")
     to_jax = decoder_to_jax if isinstance(state.params, Decoder) else autoencoder_to_jax
 
     def layout(values):  # per-parameter tensors in parameters() order

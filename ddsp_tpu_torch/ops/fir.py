@@ -322,10 +322,14 @@ def _design_spectrum_mats(n_filters: int, block_size: int, n_fft: int):
     causal, Hann window, zero-pad to ``block_size``, roll back) followed by
     the convolution's forward rDFT at ``n_fft`` is one linear map of the
     ``n_filters`` magnitudes, composed here in float64 and cast to float32.
+    The padding and the roll back put the windowed zero-phase tap of time
+    tau at ``tau mod block_size``; a block shorter than the design's
+    2 (n_filters - 1) taps takes the same rule, the taps that meet summed
+    (the port's own: the JAX package refuses such a block), so the block's
+    circular response is the windowed design's at every
+    ``2 (n_filters - 1) / block_size``-th bin.
     """
     fs = 2 * (n_filters - 1)
-    if block_size < fs:
-        raise ValueError(f"block_size {block_size} < designed FIR length {fs}")
     k = np.arange(n_filters, dtype=np.float64)[:, None]
     t = np.arange(fs, dtype=np.float64)[None, :]
     scale = np.full((n_filters, 1), 2.0 / fs)
@@ -334,8 +338,9 @@ def _design_spectrum_mats(n_filters: int, block_size: int, n_fft: int):
     design = np.cos(2.0 * np.pi * k * t / fs) * scale
     design = np.roll(design, fs // 2, axis=1)
     design = design * (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(fs) / fs))
-    design = np.pad(design, ((0, 0), (0, block_size - fs)))
-    design = np.roll(design, -(fs // 2), axis=1)  # (n_filters, block_size)
+    causal = design
+    design = np.zeros((n_filters, block_size))  # tap j sounds at time j - fs/2
+    np.add.at(design, (slice(None), (np.arange(fs) - fs // 2) % block_size), causal)
     tt = np.arange(block_size, dtype=np.float64)[:, None]
     kk = np.arange(n_fft // 2 + 1, dtype=np.float64)[None, :]
     ang = -2.0 * np.pi * tt * kk / n_fft

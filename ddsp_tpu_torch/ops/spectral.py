@@ -13,7 +13,10 @@ Counterpart of ``ddsp_tpu/ops/spectral.py``:
   not ported;
 * loudness: ``torch.stft(center=False)`` with no window and the librosa
   A-weighting curve, as in the reference loudness encoder
-  (encoder.py:135-156).
+  (encoder.py:135-156);
+* ``mfcc``: the z encoder's MFCCs, as magenta/ddsp's
+  ``spectral_ops.compute_mfcc`` computes them (the port's own: the JAX
+  package has no z encoder).
 """
 
 from __future__ import annotations
@@ -154,3 +157,60 @@ def a_weighted_loudness(
     db = 20.0 * torch.log10(mag + 1e-20)
     db = db + torch.as_tensor(a_weighting(n_fft, sample_rate), device=x.device)
     return (db / 90.0 + 1.0).mean(dim=-1, keepdim=True)
+
+
+MEL_FLOOR = 1e-5  # magenta's safe_log: log(max(x, 1e-5))
+
+
+def hz_to_mel(f):
+    """HTK mel: 1127 ln(1 + f / 700)."""
+    return 1127.0 * np.log1p(np.asarray(f, dtype=np.float64) / 700.0)
+
+
+@functools.lru_cache(maxsize=None)
+def mel_matrix(n_mels: int, n_bins: int, sample_rate: int, lo_hz: float,
+               hi_hz: float) -> np.ndarray:
+    """(n_bins, n_mels) float64 weights of ``tf.signal.linear_to_mel_weight_matrix``:
+    n_mels + 2 edges evenly spaced in mel from ``lo_hz`` to ``hi_hz``,
+    triangles max(0, min(rising, falling)) over the bins' mel, the DC row
+    zero."""
+    mel = hz_to_mel(np.linspace(0.0, sample_rate / 2.0, n_bins)[1:])[:, None]
+    edges = np.linspace(hz_to_mel(lo_hz), hz_to_mel(hi_hz), n_mels + 2)
+    lower, centre, upper = edges[None, :-2], edges[None, 1:-1], edges[None, 2:]
+    w = np.maximum(0.0, np.minimum((mel - lower) / (centre - lower),
+                                   (upper - mel) / (upper - centre)))
+    return np.concatenate([np.zeros((1, n_mels)), w])
+
+
+@functools.lru_cache(maxsize=None)
+def dct_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) float64: the first ``n_out`` coefficients of the DCT-II,
+    2 sum_n x_n cos(pi k (2n + 1) / 2N), times 1 / sqrt(2N)
+    (``tf.signal.mfccs_from_log_mel_spectrograms``)."""
+    n = np.arange(n_in, dtype=np.float64)[:, None]
+    k = np.arange(n_out, dtype=np.float64)[None, :]
+    return 2.0 * np.cos(np.pi * k * (2.0 * n + 1.0) / (2.0 * n_in)) / np.sqrt(2.0 * n_in)
+
+
+@functools.lru_cache(maxsize=None)
+def _mfcc_mats(n_fft: int, sample_rate: int, n_mels: int, n_mfcc: int, lo_hz: float,
+               hi_hz: float, device: torch.device):
+    mel = mel_matrix(n_mels, n_fft // 2 + 1, sample_rate, lo_hz, hi_hz)
+    return (torch.as_tensor(mel, dtype=torch.float32, device=device),
+            torch.as_tensor(dct_matrix(n_mels, n_mfcc), dtype=torch.float32, device=device))
+
+
+def mfcc(x: torch.Tensor, sample_rate: int, n_fft: int, hop: int, n_mels: int, n_mfcc: int,
+         lo_hz: float, hi_hz: float) -> torch.Tensor:
+    """(B, L) audio -> (B, ceil(L / hop), n_mfcc) MFCCs: |STFT| (periodic
+    Hann, no centring, zeros padded at the end, ``pad_end``), the mel
+    weights of :func:`mel_matrix` from ``lo_hz`` to ``hi_hz``,
+    log(max(x, 1e-5)), and the DCT-II of :func:`dct_matrix`."""
+    length = x.shape[-1]
+    frames = -(-length // hop)
+    xp = F.pad(x, (0, max(0, (frames - 1) * hop + n_fft - length)))
+    spec = torch.stft(xp, n_fft, hop_length=hop, window=_window(n_fft, x.dtype, x.device),
+                      center=False, return_complex=True)
+    mel, dct = _mfcc_mats(n_fft, sample_rate, n_mels, n_mfcc, lo_hz, hi_hz, x.device)
+    logmel = torch.log(torch.clamp(spec.abs().transpose(-1, -2) @ mel, min=MEL_FLOOR))
+    return logmel @ dct

@@ -37,7 +37,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from ddsp_tpu_torch.config import Config
+from ddsp_tpu_torch.config import Config, refuse_z
 from ddsp_tpu_torch.device import resolve_device
 from ddsp_tpu_torch.models.controller import controller_apply
 from ddsp_tpu_torch.models.nn import compute_dtype_of
@@ -185,6 +185,7 @@ def make_sp_train_step(conf: Config, mesh: Mesh, device="cuda"):
     returns the same state and metrics, those of the global batch's
     single-device step to float32 accuracy.
     """
+    refuse_z(conf, "make_sp_train_step", "the z encoder's MFCCs over time shards")
     resolve_device(device)
     loss = make_sp_loss(conf, mesh)
 

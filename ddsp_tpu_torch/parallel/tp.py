@@ -27,7 +27,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from ddsp_tpu_torch.config import Config
+from ddsp_tpu_torch.config import Config, refuse_z
 from ddsp_tpu_torch.device import resolve_device
 from ddsp_tpu_torch.models.controller import controller_apply
 from ddsp_tpu_torch.models.nn import compute_dtype_of
@@ -160,6 +160,7 @@ def make_tp_train_step(conf: Config, mesh: Mesh, device="cuda"):
     metrics, those of the global batch's single-device step to float32
     accuracy.
     """
+    refuse_z(conf, "make_tp_train_step", "a tensor-parallel z encoder")
     resolve_device(device)
     if set(mesh.shape) != {DATA_AXIS, MODEL_AXIS}:
         raise ValueError(f"the tensor-parallel step takes a ('data', 'model') mesh, got axes "

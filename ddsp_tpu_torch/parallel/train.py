@@ -25,7 +25,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from ddsp_tpu_torch.config import Config
+from ddsp_tpu_torch.config import Config, refuse_z
 from ddsp_tpu_torch.device import resolve_device
 from ddsp_tpu_torch.models.controller import decoder_apply
 from ddsp_tpu_torch.parallel.collectives import all_gather, psum, rank_mask
@@ -107,6 +107,7 @@ def make_parallel_train_step(conf: Config, mesh: Mesh, device="cuda"):
     returns the same state and metrics, those of the whole batch's step
     to float32 accuracy.
     """
+    refuse_z(conf, "make_parallel_train_step", "the z encoder's audio among each rank's rows")
     resolve_device(device)
     mesh.require_member()
     shard, _ = _row_shard(mesh)

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ddsp_tpu_torch.config import Config
+from ddsp_tpu_torch.config import Config, refuse_z
 from ddsp_tpu_torch.data.audio_io import read_audio, write_wav
 from ddsp_tpu_torch.device import resolve_device
 from ddsp_tpu_torch.models.autoencoder import autoencoder_apply
@@ -89,6 +89,7 @@ def reconstruct_file(
     exports loads it once and passes it in).  The noise key is
     ``PRNGKey(conf.seed)``.  Non-finite output raises ValueError.
     """
+    refuse_z(conf, "reconstruct_file", "z in the encoder's features of a whole file")
     dev = resolve_device(device)
     if decoder is None:
         decoder = load_decoder_params(conf, lightning_ckpt)

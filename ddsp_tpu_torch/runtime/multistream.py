@@ -29,7 +29,7 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
-from ddsp_tpu_torch.config import Config
+from ddsp_tpu_torch.config import Config, refuse_z
 from ddsp_tpu_torch.device import resolve_device
 from ddsp_tpu_torch.models.controller import Decoder, controller_apply
 from ddsp_tpu_torch.models.crepe import Crepe
@@ -291,6 +291,7 @@ class MultiStreamServer:
         noise_seed: int = 0,
         device="cuda",
     ):
+        refuse_z(conf, "MultiStreamServer", "an MFCC stream step and a second recurrent state a slot")
         self.device = resolve_device(device)
         self.conf = conf
         self.n_streams = n_streams

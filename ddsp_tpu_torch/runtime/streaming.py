@@ -28,7 +28,7 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
-from ddsp_tpu_torch.config import Config
+from ddsp_tpu_torch.config import Config, refuse_z
 from ddsp_tpu_torch.device import resolve_device
 from ddsp_tpu_torch.models.controller import Decoder, controller_apply
 from ddsp_tpu_torch.models.crepe import Crepe, crepe_forward, pitch_argmax
@@ -110,6 +110,7 @@ def make_synth_stream_step(params: Decoder, conf: Config, noise_key: torch.Tenso
     (zeros while the pipeline fills).  The reverb IR partition spectra are
     computed once here, since the weights are fixed.
     """
+    refuse_z(conf, "make_synth_stream_step", "an MFCC stream step and a second recurrent state")
     with torch.no_grad():
         ir_spec = reverb_ir_spectra(params.reverb, conf, conf.hop_length)
 
@@ -227,6 +228,7 @@ class BlockSynthesizer:
     ):
         from ddsp_tpu_torch.runtime import multistream  # which imports this module
 
+        refuse_z(conf, "BlockSynthesizer", "an MFCC stream step and a second recurrent state a slot")
         self.device = resolve_device(device)
         self.conf = conf
         self.hop = conf.hop_length

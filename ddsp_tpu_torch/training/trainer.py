@@ -170,18 +170,27 @@ class AdamPlateau:
              state: OptState, value: torch.Tensor) -> OptState:
         """Update ``params`` in place from ``grads`` and the step's loss
         ``value``; returns the new state (the old one's moment tensors are
-        updated in place too)."""
+        updated in place too).  Each operation runs over every tensor at
+        once (``torch._foreach_*``, a few launches each on the card) with the
+        arithmetic of a loop over the tensors, whose ten launches a tensor
+        took the host longer to issue than the card to run."""
         adam = state.adam
         count = adam.count + 1
         bc1 = 1 - self.b1 ** count.float()
         bc2 = 1 - self.b2 ** count.float()
         plateau = self.plateau_update(state.plateau, value)
         step_size = -self.lr * plateau.scale
-        for p, g, mu, nu in zip(params, grads, adam.mu, adam.nu):
-            mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
-            nu.mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            p.add_(update * step_size)
+        torch._foreach_mul_(adam.mu, self.b1)
+        torch._foreach_add_(adam.mu, grads, alpha=1 - self.b1)
+        torch._foreach_mul_(adam.nu, self.b2)
+        torch._foreach_addcmul_(adam.nu, grads, grads, value=1 - self.b2)
+        update = torch._foreach_div(adam.mu, bc1)
+        denom = torch._foreach_div(adam.nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_div_(update, denom)
+        torch._foreach_mul_(update, step_size)
+        torch._foreach_add_(params, update)
         return OptState(AdamState(count, adam.mu, adam.nu), plateau)
 
 
@@ -760,7 +769,8 @@ def _fit_device_steps(
     spectra = _maybe_cache_target_spectra(conf, data["audio"])
     if spectra:
         data.update(spectra)
-        del data["audio"]  # the cached loss never reads the raw audio
+        if not conf.z_dims:  # the cached loss never reads the raw audio; a z encoder does
+            del data["audio"]
     n = next(iter(data.values())).shape[0]
     order = torch.Generator(device=dev).manual_seed(seed)
     step_fn = make_train_step(conf)
@@ -809,7 +819,7 @@ def _dump_reconstructions(state, conf, features, out_dir, epoch, n=2):
     device = state.rng.device
     batch = {
         k: torch.as_tensor(np.asarray(features[k][:n]), device=device)
-        for k in ("f0", "normalized_cents", "loudness")
+        for k in ("f0", "normalized_cents", "loudness") + (("audio",) if conf.z_dims else ())
     }
     pred = decoder_apply(state.params, batch, conf, PRNGKey(epoch, device))
     for i, row in enumerate(pred.cpu().numpy()):
